@@ -1,0 +1,131 @@
+"""MMF standalone driver: GCM loop x CRM physics loop (port of
+pam_tpu/driver/mmf.py:71-407; ref standalone/mmf_simplified/
+driver.cpp:237-272 — per GCM step compute the forcing tendencies, then
+per CRM step apply forcing -> dycore -> sponge -> micro).
+
+One CRM step is eager PyTorch over the whole ensemble. The TPU's
+micro-batching routes and their VMEM calibration are not ported: on the
+H100 one program runs the whole ensemble.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable
+
+import numpy as np
+import torch
+from torch.profiler import record_function
+
+from ..core.coupler import Coupler
+from ..modules import gcm_forcing, sponge
+from ..modules.broadcast import broadcast_initial_gcm_column
+from ..modules.perturb import perturb_temperature
+from ..physics import kessler
+from ..spam.dycore import SpamDycore
+from . import supercell_column
+
+
+@dataclasses.dataclass(eq=False)
+class MmfDriver:
+    """Composes the dycore and the physics into CRM and GCM steps."""
+    coupler: Coupler
+    dycore: Any
+    micro: Any = None
+    dt_gcm: float = 900.0
+    dt_crm_phys: float = 20.0
+
+    def crm_phys_step(self, state):
+        """One CRM physics step over the whole ensemble."""
+        total = int(state["temp"].shape[0])
+        if total != self.coupler.nens:
+            raise ValueError(
+                f"state carries nens={total} but the driver was built with "
+                f"nens={self.coupler.nens}; build the driver at the state's "
+                "ensemble size (micro-batching is not ported)")
+        return self._crm_phys_step_single(state)
+
+    def _crm_phys_step_single(self, state):
+        # the pam: spans name the layers in a torch.profiler trace
+        # (python -m pam_tpu_torch.profile_step)
+        cpl = self.coupler
+        with record_function("pam:forcing"):
+            state = gcm_forcing.apply_gcm_forcing_tendencies(
+                cpl, state, self.dt_crm_phys, self.dt_gcm)
+        with record_function("pam:dycore"):
+            state = self.dycore.timestep(state, self.dt_crm_phys)
+        with record_function("pam:sponge"):
+            state = sponge.sponge_layer(cpl, state, self.dt_crm_phys)
+        if self.micro is not None:
+            with record_function("pam:micro"):
+                state = self.micro.timestep(state, self.dt_crm_phys)
+        return state
+
+    def gcm_step(self, state):
+        """One GCM step: forcing tendencies, then dt_gcm/dt_crm_phys CRM
+        steps."""
+        state = gcm_forcing.compute_gcm_forcing_tendencies(
+            self.coupler, state, self.dt_gcm)
+        for _ in range(int(round(self.dt_gcm / self.dt_crm_phys))):
+            state = self.crm_phys_step(state)
+        return state
+
+    def run(self, state, sim_time: float, callback: Callable = None):
+        """GCM loop over sim_time (driver.cpp:237-272); callback(state,
+        elapsed) after every GCM step."""
+        etime = 0.0
+        for _ in range(int(np.ceil(sim_time / self.dt_gcm))):
+            state = self.gcm_step(state)
+            etime += self.dt_gcm
+            if callback is not None:
+                callback(state, etime)
+        return state
+
+
+def setup_supercell_mmf(nx=65, ny=1, nz=50, nens=1, xlen=128000.0,
+                        ylen=64000.0, zlen=20000.0, *, dtype, device,
+                        micro="kessler", sgs="none", dt_gcm=900.0,
+                        dt_crm_phys=20.0, dycore="spam", crm_per_phys=1,
+                        state_only=False):
+    """The MMF configuration of inputs/input_pamc.yaml (65x1x50 cells,
+    128 km x 64 km, 20 km top) from the supercell column, on ``device``
+    in ``dtype``: SPAM (PAM-C, MCE_rho, semi-implicit with dt_si =
+    dt_crm_phys/crm_per_phys, the reference coupled defaults,
+    core/params.h:120-165) with Kessler microphysics. Returns
+    (driver, state); ``state_only=True`` skips the dycore build and
+    returns (None, state) with the same state."""
+    if dycore != "spam":
+        raise NotImplementedError(
+            f"dycore={dycore!r}: the AWFL dycore (PAM-A) is not ported yet "
+            "(ROADMAP queue A, the AWFL slice)")
+    if micro != "kessler":
+        raise NotImplementedError(
+            f"micro={micro!r} is not ported yet (ROADMAP queue A, the "
+            "P3/SHOC slice)")
+    if sgs != "none":
+        raise NotImplementedError(
+            f"sgs={sgs!r} is not ported yet (ROADMAP queue A, the P3/SHOC "
+            "slice)")
+    cpl = Coupler(nz=nz, ny=ny, nx=nx, nens=nens, xlen=xlen, ylen=ylen,
+                  dtype=dtype, device=torch.device(device))
+    cpl = kessler.register(cpl)
+
+    # uniform vertical interfaces (stretched grids wait for their slice)
+    zint = np.linspace(0.0, zlen, nz + 1)
+    state = cpl.allocate_state(zint)
+    state = supercell_column.initialize_from_supercell_column(cpl, state,
+                                                              zint)
+    state = broadcast_initial_gcm_column(cpl, state)
+    state = perturb_temperature(cpl, state, np.arange(nens))
+
+    dyc = None
+    if not state_only:
+        dyc = SpamDycore.build_coupled(cpl, state, zint,
+                                       dt_si=dt_crm_phys / crm_per_phys)
+    state = kessler.init_state(cpl, state)
+    micro_obj = kessler.KesslerMicro(cpl)
+    if state_only:
+        return None, state
+    drv = MmfDriver(coupler=cpl, dycore=dyc, micro=micro_obj,
+                    dt_gcm=dt_gcm, dt_crm_phys=dt_crm_phys)
+    return drv, state

@@ -1,0 +1,95 @@
+"""Periodic-x WENO edge reconstruction: the CUDA kernel and its plain version.
+
+Replaces the Pallas TPU kernels ``pam_tpu/ops/weno_x_pallas.py::
+edge_recon_x_pallas`` and ``pam_tpu/ops/weno_pallas.py::edge_recon_x``
+(the same function) with ``csrc/weno_x.cu``. :func:`weno_edges_x` routes
+by device: a CUDA tensor goes to the kernel (or raises), a CPU tensor to
+:func:`weno_edges_x_reference`, the torch port of ``halo_pad`` +
+``weno.weno_edges_list`` that the CPU tests and the card-side comparison
+use.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..parallel import comm
+from . import weno
+
+ORD = 5
+
+
+def weno_edges_x_reference(field: torch.Tensor, tables):
+    """(left, right) WENO edge values of each cell along periodic x (the
+    last axis) in plain torch: periodic halo + ``weno_edges_list``."""
+    s2c, wrl, tvh, tvl, c2g, idl, sigma = tables
+    hs = (s2c.shape[-1] - 1) // 2
+    nx = field.shape[-1]
+    pad = comm.halo_pad(field, hs)
+    sten = [pad[..., s:s + nx] for s in range(s2c.shape[-1])]
+    return weno.weno_edges_list(sten, s2c, wrl, tvh, tvl, idl, sigma, c2g)
+
+
+def _packed_tables(tables) -> np.ndarray:
+    """The tables as the kernel's 101 float64 values (csrc/weno_x.cu)."""
+    s2c, wrl, tvh, tvl, c2g, idl, sigma = tables
+    if s2c.shape != (ORD, ORD):
+        raise ValueError(f"the CUDA WENO kernel is order {ORD}; got tables "
+                         f"of order {s2c.shape[-1]}")
+    parts = [s2c, wrl, tvh, tvl, c2g, idl, np.array([sigma], s2c.dtype)]
+    return np.ascontiguousarray(np.concatenate(
+        [np.asarray(p).ravel() for p in parts]).astype(np.float64))
+
+
+def weno_edges_x_cuda(field: torch.Tensor, tables):
+    """Launch ``csrc/weno_x.cu`` on a contiguous (rows, nx) float32/float64
+    CUDA tensor; returns (left, right), each (rows, nx)."""
+    if not field.is_cuda:
+        raise ValueError(f"weno_edges_x_cuda needs a CUDA tensor, got "
+                         f"{field.device}")
+    if field.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"weno_edges_x_cuda takes float32/float64, got "
+                        f"{field.dtype}")
+    if field.ndim != 2 or not field.is_contiguous():
+        raise ValueError(f"weno_edges_x_cuda takes a contiguous (rows, nx) "
+                         f"tensor, got shape {tuple(field.shape)} "
+                         f"contiguous={field.is_contiguous()}")
+    rows, nx = field.shape
+    if nx < (ORD - 1) // 2:
+        raise ValueError(f"nx={nx} is narrower than the stencil half-width")
+    if np.asarray(tables[0]).dtype != {torch.float32: np.float32,
+                                       torch.float64: np.float64}[field.dtype]:
+        raise TypeError("WENO tables and field differ in dtype")
+    from .. import _cuda
+    lib = _cuda.library()
+    packed = _packed_tables(tables)
+    left = torch.empty_like(field)
+    right = torch.empty_like(field)
+    fn = lib.pam_weno_x_f32 if field.dtype == torch.float32 \
+        else lib.pam_weno_x_f64
+    with torch.cuda.device(field.device):
+        stream = torch.cuda.current_stream(field.device).cuda_stream
+        rc = fn(field.data_ptr(), left.data_ptr(), right.data_ptr(), rows, nx,
+                packed.ctypes.data, stream)
+    if rc != 0:
+        raise RuntimeError(f"weno_x kernel launch failed: CUDA error {rc}")
+    weno_edges_x_cuda.launches += 1
+    return left, right
+
+
+weno_edges_x_cuda.launches = 0
+
+
+def weno_edges_x(field: torch.Tensor, tables):
+    """(left, right) WENO edge values along periodic x for a field of any
+    leading shape: the CUDA kernel for a CUDA tensor, the plain version
+    for a CPU tensor."""
+    if field.is_cuda:
+        shape = field.shape
+        left, right = weno_edges_x_cuda(
+            field.reshape(-1, shape[-1]).contiguous(), tables)
+        return left.reshape(shape), right.reshape(shape)
+    if field.device.type != "cpu":
+        raise ValueError(f"weno_edges_x: no route for device {field.device}")
+    return weno_edges_x_reference(field, tables)

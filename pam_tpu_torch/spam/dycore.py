@@ -1,0 +1,206 @@
+"""SPAM dycore <-> coupler bridge ("PAM-C"), x-z slab with semi-implicit
+steps (port of pam_tpu/spam/dycore.py:79-401; ref dynamics/spam/
+Dycore.h init/timeStep and the coupler conversions of
+hamiltonians/variableset.h:481-912, averaging path).
+
+Not ported yet (ROADMAP queue A): 3-D SPAM (ny > 1), the explicit SSPRK3
+substepping, the pressure linear systems, the two-point discrete
+gradient and the exact-inverse wind conversion.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import numpy as np
+import torch
+
+from ..core.coupler import Coupler
+from ..parallel import comm
+from . import si as si_mod
+from .geometry import ExtrudedGeometry
+from .operators import mirror_layer, rollm
+from .tendencies import SpamTendencies
+from .thermo import ConstantKappaVirtualPottemp, ThermoConstants
+from .varset import VariableSet
+
+
+def thermo_constants_from_coupler(coupler: Coupler) -> ThermoConstants:
+    """Coupler constants -> SPAM thermo constants, as
+    CoupledTestCase::set_reference_state does (extrudedmodel.h:5812-5826);
+    Lv0 is back-solved so that Lvr == latvap."""
+    c = coupler.const
+    cpv, cl = c.cp_v, c.cp_l
+    return ThermoConstants(
+        Rd=c.R_d, Rv=c.R_v, pr=c.p0, Cpd=c.cp_d, Cvd=c.cp_d - c.R_d,
+        Cpv=cpv, Cvv=cpv - c.R_v, Cl=cl,
+        Lv0=c.latvap - (cpv - cl) * ThermoConstants.Tr, Lfr=c.latice)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class SpamDycore:
+    """Coupled SPAM dycore: MCE_rho + ConstantKappa_VirtualPottemp (the
+    reference's coupled configuration) with semi-implicit stepping."""
+    coupler: Coupler
+    geom: ExtrudedGeometry
+    varset: VariableSet
+    thermo: Any
+    tend: SpamTendencies
+    geop: torch.Tensor     # (nens, nz, nx) n-form of g*z
+    grav: float
+    si_linsys: Any = None
+    si_dt: float = None
+    si_max_iters: int = 3
+    si_nquad: int = 2
+
+    name = "SPAM++"  # ref: Dycore.h:327
+
+    @staticmethod
+    def build(coupler: Coupler, zint, thermo, grav: float = 9.80616
+              ) -> "SpamDycore":
+        """x-z slab (ny == 1), variant MCE_rho."""
+        if coupler.ny > 1:
+            raise NotImplementedError(
+                "3-D SPAM (ny > 1) is not ported yet (ROADMAP queue A)")
+        geom = ExtrudedGeometry.build(coupler.nx, np.asarray(zint),
+                                      coupler.xlen, coupler.nens,
+                                      coupler.dtype, coupler.device)
+        vs = VariableSet(tracer_names=tuple(coupler.tracer_names),
+                         tracer_positive=tuple(coupler.tracer_positive),
+                         geom=geom, thermo=thermo)
+        # geopotential as twisted n1-form: avg(g*z)*volume per dual cell
+        geop_col = grav * geom.zmid_d * geom.dx * geom.dy * geom.dz_d
+        tend = SpamTendencies(geom=geom, varset=vs, thermo=thermo, grav=grav)
+        geop = torch.as_tensor(np.repeat(geop_col[:, :, None], geom.nx,
+                                         axis=2),
+                               dtype=coupler.dtype, device=coupler.device)
+        return SpamDycore(coupler=coupler, geom=geom, varset=vs,
+                          thermo=thermo, tend=tend, geop=geop, grav=grav)
+
+    @staticmethod
+    def build_coupled(coupler: Coupler, state, zint, dt_si,
+                      si_max_iters: int = 3, si_nquad: int = 2,
+                      linear_system: str = "velocity") -> "SpamDycore":
+        """The reference's MMF configuration: thermo constants from the
+        coupler, SI reference state from the coupler's ref_* columns, and
+        the semi-implicit integrator at step dt_si (CoupledTestCase,
+        extrudedmodel.h:5768-6069; core/params.h:148-152)."""
+        thermo = ConstantKappaVirtualPottemp(
+            cst=thermo_constants_from_coupler(coupler))
+        dyc = SpamDycore.build(coupler, zint, thermo,
+                               grav=coupler.const.grav)
+        refstate = si_mod.build_coupled_reference_state(
+            state, dyc.geom, thermo, dyc.varset, coupler.const.grav)
+        return dyc.with_si(refstate, dt_si, max_iters=si_max_iters,
+                           nquad=si_nquad, linear_system=linear_system)
+
+    def with_si(self, refstate, dt_si, max_iters: int = 3, nquad: int = 2,
+                linear_system: str = "velocity") -> "SpamDycore":
+        """A copy that takes semi-implicit steps of dt_si with the given
+        reference state (ref tstype="si" + set_reference_state)."""
+        if linear_system != "velocity":
+            raise NotImplementedError(
+                f"the {linear_system!r} SI linear system is not ported yet "
+                "(ROADMAP queue A); the velocity system is")
+        T = lambda a: torch.as_tensor(a, dtype=self.coupler.dtype,
+                                      device=self.coupler.device)
+        tend = dataclasses.replace(
+            self.tend, force_refstate_hydrostatic_balance=True,
+            refdens=T(refstate["dens"]), ref_rho_pi=T(refstate["rho_pi"]),
+            ref_q_pi=T(refstate["q_pi"]), ref_rho_di=T(refstate["rho_di"]),
+            ref_q_di=T(refstate["q_di"]), ref_B=T(refstate["B"]))
+        linsys = si_mod.CompressibleVelocityLinearSystem.build(
+            self.geom, self.thermo, self.varset, refstate, dt_si,
+            grav=self.grav)
+        return dataclasses.replace(self, tend=tend, si_linsys=linsys,
+                                   si_dt=dt_si, si_max_iters=max_iters,
+                                   si_nquad=nquad)
+
+    # ------------------------------------------------------- conversions
+    def coupler_to_dynamics(self, state):
+        """(convert_coupler_to_dynamics_densities/wind,
+        variableset.h:675-912, averaging path)."""
+        g, vs, th = self.geom, self.varset, self.thermo
+        fld = lambda name: state[name][:, :, 0, :]
+        if "water_vapor" not in vs.tracer_names:
+            raise ValueError(
+                "the coupled SPAM conversion requires a registered "
+                "'water_vapor' tracer (variableset.h:246-287)")
+        area = g.area_n1_t[:, :, None]
+        rho_d = fld("density_dry")
+        temp = fld("temp")
+        tracers = [fld(n) for n in vs.tracer_names]
+        dens_vap = tracers[vs.dens_id_vap - 2]
+        dens_tot = rho_d + dens_vap  # ref: variableset.h:724
+        qd = rho_d / dens_tot
+        qv = dens_vap / dens_tot
+        ql = tracers[vs.dens_id_liq - 2] / dens_tot if vs.liq_found else 0.0
+        qi = tracers[vs.dens_id_ice - 2] / dens_tot if vs.ice_found else 0.0
+        alpha = 1.0 / dens_tot
+        sv = th.compute_entropic_var_from_alpha_T(alpha, temp, qd, qv, ql, qi)
+        dens = torch.stack([dens_tot * area, sv * dens_tot * area] +
+                           [t * area for t in tracers])
+        # winds (averaging; ref: variableset.h:874-911)
+        uvel = fld("uvel")
+        wvel = fld("wvel")
+        w = 0.5 * (wvel[:, :-1] + wvel[:, 1:]) * g.dz_p_t[:, :, None]
+        v = 0.5 * (uvel + rollm(uvel, -1)) * g.dx
+        return dens, v, w
+
+    def dynamics_to_coupler(self, state, dens, v, w):
+        """(convert_dynamics_to_coupler_densities/wind,
+        variableset.h:481-654). Returns a new state dict."""
+        g, vs, th = self.geom, self.varset, self.thermo
+        area = g.area_n1_t[:, :, None]
+        qd, qv, ql, qi = vs.moist_qs(dens)
+        sv = vs.get_entropic_var(dens)
+        alpha = vs.get_alpha(dens)
+        temp = th.compute_T_from_alpha(alpha, sv, qd, qv, ql, qi)
+        rho_d = vs.get_dry_density(dens) / area
+        to4d = lambda a: a[:, :, None, :]
+        out = dict(state)
+        out["density_dry"] = to4d(rho_d)
+        out["temp"] = to4d(temp)
+        for idx, name in enumerate(vs.tracer_names):
+            out[name] = to4d(dens[2 + idx] / area)
+        # winds back to cell centers (ref: variableset.h:594-652)
+        u_edge = v / g.dx
+        out["uvel"] = to4d(0.5 * (u_edge + rollm(u_edge, 1)))
+        out["vvel"] = torch.zeros_like(out["uvel"])
+        e = g.dz_p_t[:, :, None]
+        w_phys = w / e                        # (nens, nz-1, nx)
+        # wvel at dual layer k: interface-weighted interp (ref :607-633)
+        w_pad = mirror_layer(w_phys, 1)       # w_pad[k] = w_phys[k-1]
+        e_pad = torch.cat([e[:, :1], e, e[:, -1:]], dim=1)
+        wd, wu = w_pad[:, :-1], w_pad[:, 1:]
+        e_d, e_u = e_pad[:, :-1], e_pad[:, 1:]
+        w_mid = wd + (wu - wd) * e_d / (e_u + e_d)
+        # the boundary layers take the adjacent w directly
+        w_mid = torch.cat([w_phys[:, :1], w_mid[:, 1:-1], w_phys[:, -1:]],
+                          dim=1)
+        out["wvel"] = to4d(w_mid)
+        return out
+
+    # ------------------------------------------------------- time stepping
+    def timestep(self, state, dt_phys):
+        """Advance the coupler state by dt_phys in SI steps of si_dt
+        (Dycore::timeStep, spam/Dycore.h:248-318). Negative positive-
+        definite densities are clipped after every substep (the
+        reference's clip_negative_densities)."""
+        if self.si_linsys is None:
+            raise NotImplementedError(
+                "explicit SSPRK3 substepping is not ported yet (ROADMAP "
+                "queue A); build with build_coupled / with_si")
+        geop = comm.local_xslice(self.geop, -1)
+        n_substeps = max(1, int(round(dt_phys / self.si_dt)))
+        dtcrm = dt_phys / n_substeps
+        dens, v, w = self.coupler_to_dynamics(state)
+        pos = torch.as_tensor(self.varset.dens_pos, device=dens.device)
+        pos = pos.reshape((-1,) + (1,) * (dens.ndim - 1))
+        for _ in range(n_substeps):
+            dens, v, w = si_mod.si_step(self.tend, self.si_linsys, dens, v,
+                                        w, geop, dtcrm, self.si_max_iters,
+                                        self.si_nquad)
+            dens = torch.where(pos, torch.clamp(dens, min=0.0), dens)
+        return self.dynamics_to_coupler(state, dens, v, w)

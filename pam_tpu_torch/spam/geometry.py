@@ -1,0 +1,79 @@
+"""Extruded primal/dual geometry for the SPAM dycore, x-z slab (port of
+pam_tpu/spam/geometry.py; ref dynamics/spam/src/grids/{topology.h,
+geometry.h}).
+
+Dual (twisted) grid: nz layers, nz+1 interfaces (``zint_d``, ``dz_d``).
+Primal (straight): nz-1 layers between nz interfaces at the dual-layer
+midpoints, except the first/last on the boundaries (geometry.h:303-317).
+The numpy arrays are the float64 setup values; the ``*_t`` tensors are
+the same values cast once to the run's dtype and device.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class ExtrudedGeometry:
+    nx: int
+    nz: int           # dual layers (= CRM nz)
+    nens: int
+    xlen: float
+    dx: float
+    dy: float         # 1.0 for ndims=1
+    uniform_vertical: bool
+    zint_d: np.ndarray   # (nens, nz+1) twisted interfaces
+    dz_d: np.ndarray     # (nens, nz)   twisted layer thicknesses
+    zint_p: np.ndarray   # (nens, nz)   straight interfaces (v-levels)
+    dz_p: np.ndarray     # (nens, nz-1) straight layer thicknesses (w-edges)
+    dtype: torch.dtype
+    device: torch.device
+    dz_d_t: torch.Tensor        # dz_d as run tensor
+    dz_p_t: torch.Tensor        # dz_p as run tensor
+    area_n1_t: torch.Tensor     # d_area_n1() as run tensor
+    area_nm11_t: torch.Tensor   # d_area_nm11() as run tensor
+
+    # --- area entities (geometry.h:402-466; dy=1 for ndims=1) ---
+    def d_area_n1(self):
+        """dual n1 (cell 'volume'): dx*dy*dz_d(k), (nens, nz)."""
+        return self.dx * self.dy * self.dz_d
+
+    def d_area_nm11(self):
+        """x-normal side of a dual cell: dy*dz_d(k), (nens, nz)."""
+        return self.dy * self.dz_d
+
+    def d_area_n0(self):
+        """dual (n,0) = horizontal face: dx*dy (scalar)."""
+        return self.dx * self.dy
+
+    @property
+    def zmid_d(self):
+        return 0.5 * (self.zint_d[:, :-1] + self.zint_d[:, 1:])
+
+    @staticmethod
+    def build(nx: int, zint, xlen: float, nens: int, dtype: torch.dtype,
+              device) -> "ExtrudedGeometry":
+        zint = np.asarray(zint, np.float64)
+        if zint.ndim == 1:
+            zint = np.broadcast_to(zint, (nens, len(zint))).copy()
+        nz = zint.shape[1] - 1
+        dz_d = np.diff(zint, axis=1)
+        uniform = bool(np.allclose(dz_d, dz_d[:, :1]))
+        # straight interfaces (geometry.h:303-317)
+        zint_p = np.empty((nens, nz))
+        zint_p[:, 0] = zint[:, 0]
+        zint_p[:, -1] = zint[:, -1]
+        zint_p[:, 1:-1] = 0.5 * (zint[:, 1:-2] + zint[:, 2:-1])
+        dz_p = np.diff(zint_p, axis=1)
+        dx, dy = xlen / nx, 1.0
+        T = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
+        return ExtrudedGeometry(
+            nx=nx, nz=nz, nens=nens, xlen=xlen, dx=dx, dy=dy,
+            uniform_vertical=uniform, zint_d=zint, dz_d=dz_d, zint_p=zint_p,
+            dz_p=dz_p, dtype=dtype, device=torch.device(device),
+            dz_d_t=T(dz_d), dz_p_t=T(dz_p), area_n1_t=T(dx * dy * dz_d),
+            area_nm11_t=T(dy * dz_d))

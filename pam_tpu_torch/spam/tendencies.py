@@ -1,0 +1,293 @@
+"""SPAM extruded-model tendencies: the apply_symplectic pipeline (port of
+pam_tpu/spam/tendencies.py:34-444; ref dynamics/spam/src/models/
+extrudedmodel.h, ndims=1, uniform vertical grid, WENOFUNC order-5
+reconstructions, HEAVISIDE upwinding, energy-conserving PV fluxes,
+Zalesak FCT for positive densities — the compile-time defaults,
+src/common.h:62-126).
+
+The x-direction WENO edge reconstruction goes to the hand-written CUDA
+kernel for CUDA tensors (ops/weno_x.py); everything else is plain torch.
+Diffusion is off (all coefficients 0, extrudedmodel.h:5020-5078) and
+the horizontal Hodge stars are 2nd order (diff_ord=2, common.h:64-65).
+
+Sign convention: compute_rhs returns F with dx/dt = -F (SSPRK.h:63-78).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import torch
+
+from ..ops import weno, weno_x
+from ..parallel import comm
+from . import operators as op
+from .operators import AXZ, mirror_iface, mirror_layer, rollm
+
+
+def _edge_recon_x(field, tables, recon_type: str = "wenofunc"):
+    """(left_edge, right_edge) of each cell along periodic x.
+    field: (..., nens, nlev, nx). "wenofunc"/"weno" is the limited
+    reconstruction (the CUDA kernel on the GPU), "cfv" the centered one
+    without limiting (RECONSTRUCTION_TYPE, common.h:72-88)."""
+    if recon_type == "cfv":
+        s2c, c2g = tables[0], tables[4]
+        ord = s2c.shape[-1]
+        nx = field.shape[-1]
+        pad = comm.halo_pad(field, (ord - 1) // 2)
+        aw = weno.cfv_coefs_list([pad[..., s:s + nx] for s in range(ord)],
+                                 s2c)
+        return (weno._eval_edge_list(aw, c2g[:, 0]),
+                weno._eval_edge_list(aw, c2g[:, 1]))
+    return weno_x.weno_edges_x(field, tables)
+
+
+def _edge_recon_z(field_padded, tables, nlev, recon_type: str = "wenofunc"):
+    """(bottom_edge, top_edge) of cells 0..nlev-1 from a z-padded array
+    (hs on each side); uniform-grid tables only."""
+    s2c, wrl, tvh, tvl, c2g, idl, sigma = tables
+    ord = s2c.shape[-1]
+    sten = [field_padded[..., s:s + nlev, :] for s in range(ord)]
+    if recon_type == "cfv":
+        aw = weno.cfv_coefs_list(sten, s2c)
+        return (weno._eval_edge_list(aw, c2g[:, 0]),
+                weno._eval_edge_list(aw, c2g[:, 1]))
+    return weno.weno_edges_list(sten, s2c, wrl, tvh, tvl, idl, sigma, c2g)
+
+
+def _upwind_x(left, right, flux):
+    """HEAVISIDE twisted x recon at edge i: flux >= 0 takes the right edge
+    of cell i-1, else the left edge of cell i (recon.h upwind_recon;
+    copysign(1, 0) = +1, so ties go to cell i-1)."""
+    return torch.where(flux >= 0, rollm(right, -1), left)
+
+
+def _upwind_z(bottom, top, flux_int):
+    """HEAVISIDE twisted z recon at interior interfaces k=1..nlev-1:
+    flux >= 0 takes the top edge of cell k-1, else the bottom of cell k."""
+    return torch.where(flux_int >= 0, top[..., :-1, :], bottom[..., 1:, :])
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class SpamTendencies:
+    """Static config + reference-state tensors of the extruded MCE model."""
+    geom: Any
+    varset: Any
+    thermo: Any
+    grav: float = 9.80616
+    ord: int = 5
+    force_refstate_hydrostatic_balance: bool = False
+    reconstruction_type: str = "wenofunc"   # "wenofunc"|"weno"|"cfv"
+    # reference state columns (None -> zeros), run dtype/device
+    refdens: Any = None          # (ndens, nens, nz)   dual layers
+    ref_q_pi: Any = None         # (ndens, nens, nz)   at v-levels
+    ref_rho_pi: Any = None       # (nens, nz)
+    ref_q_di: Any = None         # (ndens, nens, nz+1) at dual interfaces
+    ref_rho_di: Any = None       # (nens, nz+1)
+    ref_B: Any = None            # (nactive, nens, nz)
+
+    def __post_init__(self):
+        if not self.geom.uniform_vertical:
+            raise NotImplementedError(
+                "stretched vertical grids need the per-level WENO matrices "
+                "(pam_tpu/spam/tendencies.py:151-177), not ported yet "
+                "(ROADMAP queue A)")
+
+    def tables(self):
+        return weno.weno_tables(self.ord, self.geom.dtype)
+
+    @property
+    def hs(self):
+        return (self.ord - 1) // 2
+
+    # ------------------------------------------------------------------
+    def functional_derivatives(self, dens, v, w, geop):
+        """F, FW, K, B (compute_functional_derivatives,
+        extrudedmodel.h:1996-2084; kinetic_energy.h:306-395)."""
+        g, vs, th = self.geom, self.varset, self.thermo
+        rho_n = vs.get_total_density(dens)
+        rho0 = op.Hn1bar(rho_n, g)
+        he = op.phi_x(rho0)
+        hew = op.phi_z_iface(mirror_layer(rho0, 1))
+        u = op.H10(v, g)
+        uw = op.H01(w, g)
+        F = he * u
+        FW = hew * uw
+        # kinetic energy per dual cell (kinetic_energy.h:383-394)
+        Kh = 0.5 * (v * u + rollm(v, 1) * rollm(u, 1))
+        w_pad = mirror_layer(w, 1)
+        Kv = 0.5 * (w_pad[..., :-1, :] * uw[..., :-1, :] +
+                    w_pad[..., 1:, :] * uw[..., 1:, :])
+        K = 0.5 * (Kh + Kv)
+        # B (Hs.compute_dHsdx + Hk.compute_dKddens)
+        alpha = vs.get_alpha(dens)
+        sv = vs.get_entropic_var(dens)
+        qd, qv, ql, qi = vs.moist_qs(dens)
+        geop0 = op.Hn1bar(geop, g)
+        U = th.compute_U(alpha, sv, qd, qv, ql, qi)
+        p = -th.compute_dUdalpha(alpha, sv, qd, qv, ql, qi)
+        gExner = th.compute_dUdentropic_var(alpha, sv, qd, qv, ql, qi)
+        B_mass = geop0 + U + p * alpha - sv * gExner
+        mu_d, mu_v, mu_l, mu_i = th.compute_dUdq(alpha, sv, qd, qv, ql, qi)
+        B_mass = B_mass + qv * (mu_d - mu_v) + ql * (mu_d - mu_l) + \
+            qi * (mu_d - mu_i)
+        B_mass = B_mass + op.Hn1bar(K, g)
+        B = torch.stack([B_mass, gExner])
+        return F, FW, K, B
+
+    # ------------------------------------------------------------------
+    def q_and_f(self, dens, v, w):
+        """Relative PV at dual vertices (compute_q_and_f,
+        extrudedmodel.h:543-589); zero boundary rows (set_bnd, :2226)."""
+        hv = op.R_avg(self.varset.get_total_density(dens))
+        zeta = op.D1_ext(v, mirror_layer(w, 1))
+        nz1 = zeta.shape[AXZ]
+        k = torch.arange(nz1, device=zeta.device)
+        interior = ((k > 0) & (k < nz1 - 1))[None, :, None]
+        hv_safe = torch.where(hv == 0, torch.ones_like(hv), hv)
+        return torch.where(interior, zeta / hv_safe, torch.zeros_like(zeta))
+
+    # ------------------------------------------------------------------
+    def recons(self, dens, qhz, F, FW, FT, FTW):
+        """Upwinded WENO reconstructions of densities and PV
+        (compute_edge_reconstructions_uniform + compute_recons,
+        extrudedmodel.h:591-711, 1000-1174)."""
+        g, vs = self.geom, self.varset
+        tb = self.tables()
+        hs = self.hs
+        rho0 = op.Hn1bar(vs.get_total_density(dens), g)
+        # dens0 = (dens - refdens)/area  (compute_dens0, :379-417)
+        if self.refdens is not None:
+            dens0 = op.Hn1bar(dens - self.refdens[:, :, :, None], g)
+        else:
+            dens0 = op.Hn1bar(dens, g)
+
+        # horizontal density recon at x-edges of dual cells
+        dl, dr = _edge_recon_x(dens0, tb, self.reconstruction_type)
+        densrecon = _upwind_x(dl, dr, F[None])
+        he = op.phi_x(rho0)
+        if self.ref_rho_pi is not None:
+            densrecon = densrecon + (self.ref_rho_pi[None, :, :, None] *
+                                     self.ref_q_pi[:, :, :, None])
+        densrecon = densrecon / he[None]
+
+        # vertical density recon at dual interfaces
+        db, dt_ = _edge_recon_z(mirror_iface(dens0, hs), tb, g.nz,
+                                self.reconstruction_type)
+        vert_int = _upwind_z(db, dt_, FW[None, :, 1:-1, :])
+        # boundary rows: one-sided edge values (multiplied by FW=0 anyway)
+        densvertrecon = torch.cat(
+            [db[..., :1, :], vert_int, dt_[..., -1:, :]], dim=AXZ)
+        hew = op.phi_z_iface(mirror_layer(rho0, 1))
+        if self.ref_rho_di is not None:
+            densvertrecon = densvertrecon + (
+                self.ref_rho_di[None, :, :, None] *
+                self.ref_q_di[:, :, :, None])
+        densvertrecon = densvertrecon / hew[None]
+
+        # qhz recons: the stencil for primal layer k is centred at
+        # interface k+1 (recon.h:185-197, 236-240)
+        ql_, qr_ = _edge_recon_x(qhz[..., 1:g.nz, :], tb)
+        qhzrecon = torch.where(FTW >= 0, qr_, rollm(ql_, 1))
+        qhz_pad = mirror_iface(qhz, hs)[..., 1:g.nz + 2 * hs, :]
+        qb, qt = _edge_recon_z(qhz_pad, tb, g.nz - 1)
+        # straight vert recon at v-level kv from primal-layer cells kv-1
+        # (top) and kv (bottom), upwinded by -FT (recon.h:581-585)
+        cand0 = mirror_layer(qt, 1)[..., :g.nz, :]
+        cand1 = torch.cat([qb, qb[..., -1:, :]], dim=AXZ)
+        qhzvertrecon = torch.where(-FT >= 0, cand0, cand1)
+        return densrecon, densvertrecon, qhzrecon, qhzvertrecon
+
+    # ------------------------------------------------------------------
+    def fct(self, dens, densrecon, densvertrecon, F, FW, dt):
+        """Zalesak FCT limiting of the positive-density reconstructions
+        (extrudedmodel.h:2331-2392 + operators/fct.h). A contiguous tail
+        of positive rows is limited on its slice alone (pam_tpu's
+        dead-row elimination; the same arithmetic on the same rows)."""
+        pos_list = [bool(p) for p in self.varset.dens_pos]
+        if not any(pos_list):
+            return densrecon, densvertrecon
+        k0 = pos_list.index(True)
+        if all(pos_list[k0:]):
+            dr_t, dvr_t = self._fct_all_pos(dens[k0:], densrecon[k0:],
+                                            densvertrecon[k0:], F, FW, dt)
+            if k0 == 0:
+                return dr_t, dvr_t
+            return (torch.cat([densrecon[:k0], dr_t], dim=0),
+                    torch.cat([densvertrecon[:k0], dvr_t], dim=0))
+        pos = torch.as_tensor(self.varset.dens_pos,
+                              device=dens.device)[:, None, None, None]
+        dr_all, dvr_all = self._fct_all_pos(dens, densrecon, densvertrecon,
+                                            F, FW, dt)
+        return (torch.where(pos, dr_all, densrecon),
+                torch.where(pos, dvr_all, densvertrecon))
+
+    def _fct_all_pos(self, dens, densrecon, densvertrecon, F, FW, dt):
+        """fct() limiter body over every row of the given stack."""
+        edgeflux = densrecon * F[None]
+        vertedgeflux = densvertrecon * FW[None]
+        eps = 1.0e-8
+        out_x = torch.clamp(rollm(edgeflux, 1), min=0.0) - \
+            torch.clamp(edgeflux, max=0.0)
+        out_z = torch.clamp(vertedgeflux[..., 1:, :], min=0.0) - \
+            torch.clamp(vertedgeflux[..., :-1, :], max=0.0)
+        Mf = (out_x + out_z) * dt + eps
+        # Phi at x-edges: upwind cell i-1 if edgeflux > 0 else i
+        # (fct.h:190-210; strict >, unlike the recon upwinding)
+        ratio = torch.clamp(dens / Mf, max=1.0)
+        phi_x_ = torch.where(edgeflux > 0, rollm(ratio, -1), ratio)
+        densrecon = densrecon * phi_x_
+        # Phivert at interior interfaces: upwind cell k-1 if > 0 else k
+        vf = vertedgeflux[..., 1:-1, :]
+        phi_z = torch.where(vf > 0, ratio[..., :-1, :], ratio[..., 1:, :])
+        ones = torch.ones_like(densvertrecon[..., :1, :])
+        phi_z_full = torch.cat([ones, phi_z, ones], dim=AXZ)
+        return densrecon, densvertrecon * phi_z_full
+
+    # ------------------------------------------------------------------
+    def tendencies_final(self, densrecon, densvertrecon, qhzrecon,
+                         qhzvertrecon, B, F, FW):
+        """Assemble -dx/dt (compute_tendencies, extrudedmodel.h:1645-1921)."""
+        nact = self.varset.ndensity_active  # active ids are 0..nact-1
+        dBz = B[:, :, 1:, :] - B[:, :, :-1, :]
+        wtend = torch.einsum('lekx,lekx->ekx',
+                             densvertrecon[:nact, :, 1:-1, :], dBz)
+        if self.force_refstate_hydrostatic_balance:
+            # + wD0_vert(ref q_di, ref B) (extrudedmodel.h:1684-1688)
+            dB_ref = self.ref_B[:, :, 1:] - self.ref_B[:, :, :-1]
+            wtend = wtend + torch.einsum(
+                'lek,lek->ek', self.ref_q_di[:nact, :, 1:-1],
+                dB_ref)[..., None]
+        wtend = wtend + op.Qxz_w(qhzrecon, qhzvertrecon, F)
+        dBx = B - rollm(B, -1)                      # B[i]-B[i-1]
+        vtend = torch.einsum('lekx,lekx->ekx', densrecon[:nact], dBx)
+        vtend = vtend + op.Qxz_u(mirror_layer(qhzrecon, 1), qhzvertrecon, FW)
+        denstend = op.Dnm1bar_x(F[None], densrecon) + \
+            op.Dnm1bar_vert(FW[None], densvertrecon)
+        return denstend, vtend, wtend
+
+    # ------------------------------------------------------------------
+    def apply_symplectic(self, dens, v, w, F, FW, B, dt, F_recon=None,
+                         FW_recon=None):
+        """Symplectic tendency assembly (extrudedmodel.h apply_symplectic:
+        2173-2486). F_recon/FW_recon are the midpoint mass fluxes that set
+        the FT/FTW wedges and the recon upwinding inside the SI iterations
+        (needs_to_recompute_F, :2188-2204); FCT and the final tendencies
+        keep F/FW."""
+        if F_recon is None:
+            F_recon, FW_recon = F, FW
+        FT = op.Wxz_u(FW_recon)
+        FTW = op.Wxz_w(F_recon)
+        qhz = self.q_and_f(dens, v, w)
+        densrecon, densvertrecon, qhzrecon, qhzvertrecon = \
+            self.recons(dens, qhz, F_recon, FW_recon, FT, FTW)
+        densrecon, densvertrecon = self.fct(dens, densrecon, densvertrecon,
+                                            F, FW, dt)
+        return self.tendencies_final(densrecon, densvertrecon, qhzrecon,
+                                     qhzvertrecon, B, F, FW)
+
+    def compute_rhs(self, dens, v, w, geop, dt):
+        """fd + symplectic (model.h Tendencies::compute_rhs:275-284)."""
+        F, FW, K, B = self.functional_derivatives(dens, v, w, geop)
+        return self.apply_symplectic(dens, v, w, F, FW, B, dt)

@@ -1,0 +1,99 @@
+"""Variable sets: density bookkeeping for the SPAM model variants (port of
+pam_tpu/spam/varset.py; ref dynamics/spam/src/hamiltonians/variableset.h).
+
+dens layout ``(ndensity, nens, nz, nx)`` of twisted n-forms: 0 = rho
+(total mass), 1 = S (entropic density), then the physics tracers. Only
+the coupled variant MCE_rho (moist compressible Euler predicting total
+rho, VS_MCE_rho:108-130) is ported; dry CE waits for the idealized SPAM
+cases (ROADMAP queue A).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class VariableSet:
+    tracer_names: tuple = ()       # physics tracer names, in dens order 2..
+    tracer_positive: tuple = ()
+    geom: object = None            # ExtrudedGeometry
+    thermo: object = None
+
+    dens_id_mass = 0
+    dens_id_entr = 1
+    active_id_mass = 0
+    active_id_entr = 1
+
+    @property
+    def ndensity(self):
+        return 2 + len(self.tracer_names)
+
+    @property
+    def ndensity_active(self):
+        return 2
+
+    @property
+    def dens_pos(self) -> np.ndarray:
+        return np.array([False, False] + list(self.tracer_positive))
+
+    @property
+    def dens_id_vap(self):
+        return 2 + self.tracer_names.index("water_vapor")
+
+    @property
+    def liq_found(self):
+        return any(n in ("cloud_liquid", "cloud_water")
+                   for n in self.tracer_names)
+
+    @property
+    def ice_found(self):
+        return "ice" in self.tracer_names
+
+    @property
+    def dens_id_liq(self):
+        for n in ("cloud_liquid", "cloud_water"):
+            if n in self.tracer_names:
+                return 2 + self.tracer_names.index(n)
+        raise KeyError("no liquid tracer")
+
+    @property
+    def dens_id_ice(self):
+        return 2 + self.tracer_names.index("ice")
+
+    # ---- accessors (variableset.h VS_CE/VS_MCE_rho specializations) ----
+    def get_total_density(self, dens):
+        return dens[self.dens_id_mass]
+
+    def get_entropic_var(self, dens):
+        return dens[self.dens_id_entr] / dens[self.dens_id_mass]
+
+    def get_alpha(self, dens):
+        return self.geom.area_n1_t[:, :, None] / dens[self.dens_id_mass]
+
+    def _water_dens(self, dens):
+        w = dens[self.dens_id_vap]
+        if self.liq_found:
+            w = w + dens[self.dens_id_liq]
+        if self.ice_found:
+            w = w + dens[self.dens_id_ice]
+        return w
+
+    def get_qd(self, dens):
+        return (dens[self.dens_id_mass] - self._water_dens(dens)) / \
+            dens[self.dens_id_mass]
+
+    def get_dry_density(self, dens):
+        return dens[self.dens_id_mass] - self._water_dens(dens)
+
+    def moist_qs(self, dens):
+        """(qd, qv, ql, qi) with zeros for absent species."""
+        qv = dens[self.dens_id_vap] / dens[self.dens_id_mass]
+        ql = dens[self.dens_id_liq] / dens[self.dens_id_mass] \
+            if self.liq_found else torch.zeros_like(qv)
+        qi = dens[self.dens_id_ice] / dens[self.dens_id_mass] \
+            if self.ice_found else torch.zeros_like(qv)
+        return self.get_qd(dens), qv, ql, qi

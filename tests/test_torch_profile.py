@@ -1,0 +1,53 @@
+"""The step profiler's arithmetic and the layer spans it reads.
+
+``python -m pam_tpu_torch.profile_step`` needs the card; here its busy
+share (a union of device intervals) is checked on fixed intervals, and
+one CPU step is traced to check that the driver and ``si_step`` emit
+every ``pam:`` span the profiler reports per layer.
+"""
+
+import pytest
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from pam_tpu_torch.driver.mmf import setup_supercell_mmf
+from pam_tpu_torch.modules import gcm_forcing
+from pam_tpu_torch.profile_step import union_us
+
+torch.set_num_threads(1)
+
+SPANS = {"pam:forcing", "pam:dycore", "pam:sponge", "pam:micro",
+         "pam:si.compute_rhs", "pam:si.solve", "pam:si.discrete_gradient",
+         "pam:si.symplectic"}
+
+
+@pytest.mark.parametrize("intervals, total", [
+    ([], 0.0),
+    ([(0.0, 2.0)], 2.0),
+    ([(0.0, 2.0), (1.0, 3.0), (5.0, 6.0)], 4.0),       # overlap + gap
+    ([(5.0, 6.0), (0.0, 4.0), (1.0, 2.0)], 5.0),       # unsorted, nested
+    ([(0.0, 1.0), (1.0, 2.0)], 2.0),                   # touching
+])
+def test_union_us(intervals, total):
+    assert union_us(intervals) == total
+
+
+def test_step_emits_layer_spans():
+    drv, state = setup_supercell_mmf(
+        nx=8, ny=1, nz=8, nens=1, xlen=16000.0, ylen=64000.0, zlen=16000.0,
+        dt_gcm=40.0, dt_crm_phys=20.0, dtype=torch.float64, device="cpu")
+    state = gcm_forcing.compute_gcm_forcing_tendencies(drv.coupler, state,
+                                                       40.0)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        drv.crm_phys_step(state)
+    counts = {}
+    for e in prof.events():
+        if e.name.startswith("pam:"):
+            counts[e.name] = counts.get(e.name, 0) + 1
+    assert set(counts) == SPANS
+    # one SI step: compute_rhs, then max_iters-1 quasi-Newton evaluations
+    # and max_iters linear solves
+    iters = drv.dycore.si_max_iters
+    assert counts["pam:si.compute_rhs"] == 1
+    assert counts["pam:si.solve"] == iters
+    assert counts["pam:si.symplectic"] == iters - 1
