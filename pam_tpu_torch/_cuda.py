@@ -22,8 +22,11 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
+# -fmad=false: no multiply-add contraction, so a kernel rounds every
+# product and sum as its plain version's separate PyTorch launches do
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -92,4 +95,16 @@ def library() -> ctypes.CDLL:
     lib.pam_weno_x_ntables.restype = i32
     if lib.pam_weno_x_ntables() != 101:   # ops/weno_x.py::_packed_tables
         raise RuntimeError("csrc/weno_x.cu expects another table layout")
+    for name in ("pam_p3_part2_f32", "pam_p3_part2_f64"):
+        fn = getattr(lib, name)
+        fn.argtypes = [ptr, ptr, i64, ctypes.c_double, i32, ptr, ptr]
+        fn.restype = i32
+    lib.pam_p3_part2_layout.argtypes = []
+    lib.pam_p3_part2_layout.restype = i32
+    from .ops import p3_part2
+    want = (p3_part2.N_IN * 10000 + p3_part2.N_OUT * 100
+            + len(p3_part2._constants()))
+    if lib.pam_p3_part2_layout() != want:
+        raise RuntimeError("csrc/p3_part2.cu expects another argument "
+                           "layout than ops/p3_part2.py passes")
     return lib

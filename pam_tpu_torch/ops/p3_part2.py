@@ -1,0 +1,187 @@
+"""The pointwise core of P3 part 2: the CUDA kernel and its plain version.
+
+Replaces the Pallas TPU kernel of ``pam_tpu/physics/p3/main.py:780``
+(``p3_main_part2``, its ``use_pallas`` branch, body ``kernel`` :832) with
+``csrc/p3_part2.cu`` (kernel B4). :func:`p3_part2` routes by device: a
+CUDA tensor goes to the kernel (or raises), a CPU tensor to
+:func:`p3_part2_reference`, the port's ``_part2_core``.
+
+The work is pointwise over every point of the column batch, so the
+wrapper hands the kernel flat views of any contiguous shape: 63 input
+arrays (10 arguments, the 18 ``_PART2_ST_KEYS`` fields of part 1, the 8
+in-cloud ratios, the 27 ``_PART2_TV_NAMES`` table values) and 27 output
+arrays (the 12 ``_PART2_OUT_KEYS`` fields, the 8 new in-cloud ratios,
+the 7 ``_PART2_DIAG_KEYS`` diagnostics).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..physics.p3 import main as p3main
+from ..physics.p3.constants import (CONST, QSMALL, MINCLD, INCLOUD_LIMIT,
+                                    PRECIP_LIMIT)
+
+p3_part2_reference = p3main._part2_core
+
+N_IN = 10 + len(p3main._PART2_ST_KEYS) + 8 + len(p3main._PART2_TV_NAMES)
+N_OUT = len(p3main._PART2_OUT_KEYS) + 8 + len(p3main._PART2_DIAG_KEYS)
+
+
+def _constants() -> np.ndarray:
+    """The constants the kernel reads, in the order of ``struct P3Consts``
+    of csrc/p3_part2.cu, as float64."""
+    C = CONST
+    if C.bcn != 2.0:   # the kernel writes lamc**bcn as lamc*lamc
+        raise ValueError(f"csrc/p3_part2.cu assumes bcn == 2, got {C.bcn}")
+    return np.array([
+        C.latent_heat_vapor, C.latent_heat_sublim, C.latent_heat_fusion,
+        C.rv, C.cp, C.inv_cp, C.T_zerodegc, C.T_rainfrz, C.T_icenuc,
+        C.eci, C.eri, C.inv_dropmass, C.cpw, C.aimm, C.cons3,
+        C.cons5, C.cons6, C.f1r, C.f2r, C.mi0, C.nmltratio,
+        C.inv_rho_rimeMax, C.nccnst, C.ep_2, C.max_total_ni, C.rho_h2o,
+        QSMALL, MINCLD, INCLOUD_LIMIT, PRECIP_LIMIT], dtype=np.float64)
+
+
+def p3_part2_cuda(dt, pres, inv_exner, cld_frac_l, cld_frac_i, cld_frac_r,
+                  inv_cl, inv_ci, inv_cr, qv_prev, t_prev, st, tv,
+                  ccn_mode="prescribed"):
+    """Launch ``csrc/p3_part2.cu`` on CUDA tensors of one shape and dtype
+    (float32 or float64); the arguments and results are those of
+    :func:`p3_part2_reference`."""
+    ins = ([pres, inv_exner, cld_frac_l, cld_frac_i, cld_frac_r, inv_cl,
+            inv_ci, inv_cr, qv_prev, t_prev]
+           + [st[k] for k in p3main._PART2_ST_KEYS] + list(st["inc"])
+           + [tv[k] for k in p3main._PART2_TV_NAMES])
+    ref = ins[0]
+    if not ref.is_cuda:
+        raise ValueError(f"p3_part2_cuda needs CUDA tensors, got "
+                         f"{ref.device}")
+    if ref.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"p3_part2_cuda takes float32/float64, got "
+                        f"{ref.dtype}")
+    if ccn_mode not in ("prescribed", "const"):
+        raise ValueError(f"p3_part2_cuda: ccn_mode {ccn_mode!r}")
+    for i, a in enumerate(ins):
+        if (a.shape != ref.shape or a.dtype != ref.dtype
+                or a.device != ref.device or not a.is_contiguous()):
+            raise ValueError(
+                f"p3_part2_cuda: input {i} is {tuple(a.shape)} {a.dtype} "
+                f"{a.device} contiguous={a.is_contiguous()}; every input "
+                f"must be a contiguous {tuple(ref.shape)} {ref.dtype} "
+                f"tensor on {ref.device}")
+    if len(ins) != N_IN:
+        raise ValueError(f"p3_part2_cuda: {len(ins)} inputs, not {N_IN}")
+    from .. import _cuda
+    lib = _cuda.library()
+    outs = [torch.empty_like(ref) for _ in range(N_OUT)]
+    in_ptrs = np.array([a.data_ptr() for a in ins], dtype=np.uint64)
+    out_ptrs = np.array([a.data_ptr() for a in outs], dtype=np.uint64)
+    consts = _constants()
+    fn = lib.pam_p3_part2_f32 if ref.dtype == torch.float32 \
+        else lib.pam_p3_part2_f64
+    with torch.cuda.device(ref.device):
+        stream = torch.cuda.current_stream(ref.device).cuda_stream
+        rc = fn(in_ptrs.ctypes.data, out_ptrs.ctypes.data, ref.numel(),
+                float(dt), int(ccn_mode == "const"), consts.ctypes.data,
+                stream)
+    if rc != 0:
+        raise RuntimeError(f"p3_part2 kernel launch failed: CUDA error {rc}")
+    p3_part2_cuda.launches += 1
+
+    k_o = len(p3main._PART2_OUT_KEYS)
+    o = dict(st)
+    o.update(zip(p3main._PART2_OUT_KEYS, outs[:k_o]))
+    o["inc"] = tuple(outs[k_o:k_o + 8])
+    o["mu_r"], o["lamr"] = tv["mu_r"], tv["lamr"]
+    return o, dict(zip(p3main._PART2_DIAG_KEYS, outs[k_o + 8:]))
+
+
+p3_part2_cuda.launches = 0
+
+
+def sample_inputs(shape, dtype, device, seed=0, dt=20.0):
+    """Consistent inputs of :func:`p3_part2` at any shape, for comparing
+    the kernel with its plain version: seeded points between 250 m and
+    14.75 km (T from about 300 K down to 200 K, as in
+    tests/test_p3.py:64-94) with cloud, rain and ice present or absent at
+    random, over- and under-saturated vapour and partial cloud fractions,
+    passed through the port's part 1 and table stage. Returns the
+    argument tuple (dt, pres, ..., t_prev, st, tv)."""
+    rng = np.random.default_rng(seed)
+
+    def u(lo=0.0, hi=1.0):
+        return rng.uniform(lo, hi, shape)
+
+    def some(mag_lo, mag_hi, p):
+        """log-uniform magnitudes where a draw < p, else 0."""
+        return np.where(u() < p, 10.0 ** u(np.log10(mag_lo),
+                                           np.log10(mag_hi)), 0.0)
+
+    z = u(250.0, 14750.0)
+    T = np.maximum(300.0 - 6.5e-3 * z, 200.0) + u(-2.0, 2.0)
+    p = 1e5 * np.exp(-z / 8500.0)
+    rho = p / (287.042 * T)
+    dz = u(200.0, 500.0)
+    exner = (p / 1e5) ** (287.042 / 1004.64)
+    qv = 0.017 * np.exp(-z / 2500.0) * u(0.5, 1.5) + 1e-6
+    qc = some(1e-9, 2e-3, 0.5)
+    qr = some(1e-9, 4e-3, 0.5)
+    qi = some(1e-9, 2e-3, 0.5)
+    qm = qi * u()
+    bm = qm / u(100.0, 900.0)
+    f = dict(qc=qc, nc=u(0.2, 2.0) * 1e8 / rho, qr=qr,
+             nr=u(0.2, 2.0) * 1e5 / rho, qi=qi, ni=u(0.2, 2.0) * 1e5 / rho,
+             qm=qm, bm=bm, qv=qv, th=T / exner, pres=p, dz=dz,
+             dpres=rho * 9.80616 * dz, exner=exner, inv_exner=1.0 / exner,
+             qv_prev=qv * u(0.98, 1.02), t_prev=T + u(-0.5, 0.5),
+             cld_frac_l=u(0.2, 1.0), cld_frac_i=u(0.2, 1.0),
+             cld_frac_r=u(0.2, 1.0))
+    t = {k: torch.as_tensor(v, dtype=dtype, device=device)
+         for k, v in f.items()}
+    inv_cl, inv_ci, inv_cr = (1.0 / t[k] for k in
+                              ("cld_frac_l", "cld_frac_i", "cld_frac_r"))
+    zero = torch.zeros_like(t["qc"])
+    st = p3main.p3_main_part1(
+        dt, t["pres"], t["dpres"], t["dz"], zero, t["inv_exner"],
+        t["exner"], inv_cl, inv_ci, inv_cr, t["th"] * t["exner"], t["qv"],
+        t["th"], t["qc"], t["nc"], t["qr"], t["nr"], t["qi"], t["ni"],
+        t["qm"], t["bm"], zero)
+    tv = p3main._part2_tables(st)
+    return (dt, t["pres"], t["inv_exner"], t["cld_frac_l"], t["cld_frac_i"],
+            t["cld_frac_r"], inv_cl, inv_ci, inv_cr, t["qv_prev"],
+            t["t_prev"], st, tv)
+
+
+def cast_inputs(args, dtype):
+    """:func:`sample_inputs`' tuple with every tensor cast to ``dtype``."""
+    dt, *arrs, st, tv = args
+    st = {k: (tuple(v.to(dtype) for v in st[k]) if k == "inc"
+              else st[k].to(dtype)) for k in st}
+    return (dt, *(a.to(dtype) for a in arrs), st,
+            {k: v.to(dtype) for k, v in tv.items()})
+
+
+def outputs(o, d):
+    """The 27 results of part 2 (the kernel's outputs) by name."""
+    out = {k: o[k] for k in p3main._PART2_OUT_KEYS}
+    out.update({f"inc{i}": v for i, v in enumerate(o["inc"])})
+    out.update({k: d[k] for k in p3main._PART2_DIAG_KEYS})
+    return out
+
+
+def p3_part2(dt, pres, inv_exner, cld_frac_l, cld_frac_i, cld_frac_r,
+             inv_cl, inv_ci, inv_cr, qv_prev, t_prev, st, tv,
+             ccn_mode="prescribed"):
+    """The pointwise core of P3 part 2: the CUDA kernel for CUDA tensors,
+    the plain version for CPU tensors."""
+    if pres.is_cuda:
+        return p3_part2_cuda(dt, pres, inv_exner, cld_frac_l, cld_frac_i,
+                             cld_frac_r, inv_cl, inv_ci, inv_cr, qv_prev,
+                             t_prev, st, tv, ccn_mode)
+    if pres.device.type != "cpu":
+        raise ValueError(f"p3_part2: no route for device {pres.device}")
+    return p3_part2_reference(dt, pres, inv_exner, cld_frac_l, cld_frac_i,
+                              cld_frac_r, inv_cl, inv_ci, inv_cr, qv_prev,
+                              t_prev, st, tv, ccn_mode)

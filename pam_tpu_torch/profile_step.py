@@ -1,9 +1,11 @@
 """Where the time of one CRM physics step goes on a CUDA card.
 
 Builds the MMF configuration of inputs/input_pamc.yaml (65x1x50 cells,
-128 km x 64 km x 20 km, dt 20 s, SPAM+SI, Kessler), as chip_smoke.py
-does, runs warmup steps, times steps without the profiler (CUDA events),
-then traces steps with torch.profiler and prints, per step:
+128 km x 64 km x 20 km, dt 20 s, SPAM+SI) with Kessler microphysics, or
+with P3 and SHOC (``--micro p3 --sgs shoc``, the production physics), as
+chip_smoke.py does, runs warmup steps, times steps without the profiler
+(CUDA events), then traces steps with torch.profiler and prints, per
+step:
 
 - the number of device kernels and their summed device time;
 - the device busy share of the traced window: the union of the device
@@ -17,6 +19,7 @@ then traces steps with torch.profiler and prints, per step:
 Usage (on a machine with the card):
 
     python -m pam_tpu_torch.profile_step [--nens 128] [--dtype f32]
+        [--micro kessler|p3] [--sgs none|shoc]
 """
 
 from __future__ import annotations
@@ -35,7 +38,7 @@ from .driver.mmf import setup_supercell_mmf
 from .modules import gcm_forcing
 
 FULL = dict(nx=65, ny=1, nz=50, xlen=128000.0, ylen=64000.0, zlen=20000.0,
-            dt_gcm=900.0, dt_crm_phys=20.0, dycore="spam", micro="kessler")
+            dt_gcm=900.0, dt_crm_phys=20.0, dycore="spam")
 DTYPES = {"f32": torch.float32, "f64": torch.float64}
 WARMUP, STEPS, TOP = 3, 5, 12
 
@@ -110,6 +113,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--nens", type=int, default=128)
     ap.add_argument("--dtype", choices=sorted(DTYPES), default="f32")
+    ap.add_argument("--micro", choices=("kessler", "p3"), default="kessler")
+    ap.add_argument("--sgs", choices=("none", "shoc"), default="none")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_step: torch.cuda.is_available() is false")
@@ -120,13 +125,15 @@ def main(argv=None):
 
     drv, state = setup_supercell_mmf(nens=args.nens,
                                      dtype=DTYPES[args.dtype],
-                                     device="cuda", **FULL)
+                                     device="cuda", micro=args.micro,
+                                     sgs=args.sgs, **FULL)
     state = gcm_forcing.compute_gcm_forcing_tendencies(drv.coupler, state,
                                                        drv.dt_gcm)
     for _ in range(WARMUP):
         state = drv.crm_phys_step(state)
     state, ms, host = timed_steps(drv, state, STEPS)
-    print(f"nens {args.nens} {args.dtype}, unprofiled {STEPS} steps: "
+    print(f"{args.micro}+{args.sgs} nens {args.nens} {args.dtype}, "
+          f"unprofiled {STEPS} steps: "
           f"ms/step (CUDA events) mean {np.mean(ms):.3f} median "
           f"{np.median(ms):.3f}, host {host:.3f} ms/step")
 

@@ -1,6 +1,8 @@
 """pam_tpu_torch runs without JAX and without pam_tpu: in a fresh
 interpreter where importing either fails, the package imports and one
-full crm_phys_step runs at a tiny size."""
+full crm_phys_step runs at a tiny size, with Kessler and with P3+SHOC
+(whose lookup table is read from pam_tpu's directory as a file, not
+imported)."""
 
 import os
 import subprocess
@@ -16,15 +18,20 @@ torch.set_num_threads(1)
 import pam_tpu_torch
 from pam_tpu_torch import convert, profile_step
 from pam_tpu_torch.driver.mmf import setup_supercell_mmf
-from pam_tpu_torch.modules import gcm_forcing
-drv, state = setup_supercell_mmf(nx=8, ny=1, nz=8, nens=1, xlen=16000.0,
-                                 ylen=64000.0, zlen=16000.0, dt_gcm=40.0,
-                                 dt_crm_phys=20.0, dtype=torch.float64,
-                                 device="cpu")
-state = gcm_forcing.compute_gcm_forcing_tendencies(drv.coupler, state, 40.0)
-state = drv.crm_phys_step(state)
-out = convert.state_to_numpy(state)
-assert all(np.isfinite(v).all() for v in out.values())
+from pam_tpu_torch.modules import gcm_forcing, saturation
+from pam_tpu_torch.ops import p3_part2
+from pam_tpu_torch.physics import p3
+from pam_tpu_torch.physics.sgs import shoc
+for micro, sgs in (("kessler", "none"), ("p3", "shoc")):
+    drv, state = setup_supercell_mmf(nx=8, ny=1, nz=8, nens=1, xlen=16000.0,
+                                     ylen=64000.0, zlen=16000.0, dt_gcm=40.0,
+                                     dt_crm_phys=20.0, dtype=torch.float64,
+                                     device="cpu", micro=micro, sgs=sgs)
+    state = gcm_forcing.compute_gcm_forcing_tendencies(drv.coupler, state,
+                                                       40.0)
+    state = drv.crm_phys_step(state)
+    out = convert.state_to_numpy(state)
+    assert all(np.isfinite(v).all() for v in out.values()), micro
 loaded = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
           or m == "pam_tpu" or m.startswith("pam_tpu.")]
 assert all(sys.modules[m] is None for m in loaded), loaded

@@ -51,3 +51,23 @@ def test_step_emits_layer_spans():
     assert counts["pam:si.compute_rhs"] == 1
     assert counts["pam:si.solve"] == iters
     assert counts["pam:si.symplectic"] == iters - 1
+
+
+def test_p3_shoc_step_emits_the_sgs_span():
+    """The production physics adds the pam:sgs layer between sponge and
+    micro; profile_step takes it with --micro p3 --sgs shoc."""
+    from pam_tpu_torch import profile_step
+    drv, state = setup_supercell_mmf(
+        nx=8, ny=1, nz=8, nens=1, xlen=16000.0, ylen=64000.0, zlen=16000.0,
+        dt_gcm=40.0, dt_crm_phys=20.0, dtype=torch.float64, device="cpu",
+        micro="p3", sgs="shoc")
+    state = gcm_forcing.compute_gcm_forcing_tendencies(drv.coupler, state,
+                                                       40.0)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        drv.crm_phys_step(state)
+    order = [e.name for e in sorted(prof.events(),
+                                    key=lambda e: e.time_range.start)
+             if e.name in ("pam:sponge", "pam:sgs", "pam:micro")]
+    assert order == ["pam:sponge", "pam:sgs", "pam:micro"]
+    with pytest.raises(SystemExit, match="cuda"):
+        profile_step.main(["--micro", "p3", "--sgs", "shoc"])

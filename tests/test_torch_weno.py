@@ -6,8 +6,8 @@ on the card.
 Tolerance, relative to the largest |edge value|: 1e-12 in float64 and
 2e-5 in float32. The Pallas kernels compute the coefficient form of the
 limiter and the port the reassociated edge form (ops/weno.py:144-147),
-and the CUDA kernel contracts multiply-adds into FMAs, so the sides
-agree to rounding, not bitwise.
+and the CUDA kernel divides where PyTorch's CUDA path multiplies by a
+reciprocal, so the sides agree to rounding, not bitwise.
 
 JAX is imported inside the tests that use it, so that the card-side case
 runs where JAX is not installed:
