@@ -1,15 +1,21 @@
 """Smoke run of pam_tpu_torch on one CUDA card (an H100): build the CUDA
 kernels, hold each against its plain version, reproduce the golden
 trajectories through them, and run the MMF CRM step at the production
-width of inputs/input_pamc.yaml (65x1x50 cells, 128 km x 64 km x 20 km),
-with Kessler microphysics and with the production P3+SHOC physics.
+width of inputs/input_pamc.yaml (65x1x50 cells, 128 km x 64 km x 20 km):
+SPAM+SI with Kessler microphysics and with the production P3+SHOC
+physics, and the AWFL dycore with Kessler.
 
 Usage (from the root of a checkout, on a machine with the card):
 
     python3 chip_smoke.py
 
 Each phase prints one line. The line before the last is the kernels'
-JSON record, the last line {"ok": true, "device": {...}}. Any failed
+JSON record (per kernel: launches on its main path, error against the
+plain version, ms per call of the kernel and of the plain version in
+float32, and the least time the card could take for the same bytes and
+operations; for the AWFL flux those of the z call, the slower half of its
+launches, with the x call's beside them), the last line {"ok": true,
+"device": {...}}. Any failed
 check raises, so the exit code is then not 0 and no result is printed.
 Needs no network and imports nothing of JAX.
 """
@@ -47,11 +53,55 @@ P3_GOLDEN_TOL = {"wvel": 1e-7, "cloud_water": 5e-9, "rain": 1.1e-5,
 # x-WENO calls per CRM step: densities and PV, in compute_rhs and in the
 # two quasi-Newton evaluations of one SI step
 WENO_CALLS_PER_STEP = 6
+# AWFL flux calls per sub-cycle in 2-D: 3 SSPRK3 stages, x and z
+FLUX_CALLS_PER_CYCLE = 6
+# published peaks of one H100 SXM (NVIDIA's data sheet): device memory
+# rate, float32 outside the tensor cores, float64 at half that rate
+PEAK_BYTES_S = 3.35e12
+PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 33.5e12}
 
 
 def check(cond, msg):
     if not cond:
         raise RuntimeError(f"chip_smoke: {msg}")
+
+
+def bound_ms(nbytes, flops, dtype):
+    """(least ms the card could take, what bounds it): the larger of the
+    bytes over the memory rate and the operations over the peak rate."""
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def plain_ops(fn):
+    """Operations of one call of fn, a plain version made of elementwise
+    PyTorch operations: one per element that each of them writes (a pow,
+    an exp or a select counts as one, so this is the least the function
+    needs). Views and reshapes write nothing and count nothing."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+
+    class Count(TorchDispatchMode):
+        ops = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            held = {a.untyped_storage().data_ptr()
+                    for a in tree_leaves((args, kwargs))
+                    if isinstance(a, torch.Tensor)}
+            self.ops += sum(o.numel() for o in tree_leaves(out)
+                            if isinstance(o, torch.Tensor)
+                            and o.untyped_storage().data_ptr() not in held)
+            return out
+
+    with Count() as mode:
+        fn()
+    return mode.ops
+
+
+def name_of(dtype):
+    return str(dtype).split(".")[-1]
 
 
 def field(rows, nx, dtype, seed):
@@ -69,8 +119,13 @@ def ptxas_summary(log):
     out, name = [], "?"
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
-            name = ("p3_part2" if "p3_part2" in ln else "weno_x") + "/" + (
-                "f64" if "IdE" in ln else "f32" if "IfE" in ln else "?")
+            kernel = next((k for k in ("p3_part2", "awfl_flux", "weno_x")
+                           if k + "_kernel" in ln), "?")
+            tail = ln.split(kernel + "_kernel", 1)[-1]
+            name = kernel + "/" + ("f64" if tail.startswith("Id") else
+                                   "f32" if tail.startswith("If") else "?")
+            if kernel == "awfl_flux":
+                name += "/levels" if "Lb1E" in tail else "/uniform"
         elif "spill" in ln or "registers" in ln:
             out.append(f"{name}: {ln.split(':', 1)[-1].strip()}")
     return " | ".join(out)
@@ -106,10 +161,10 @@ def phase_kernel(weno, weno_x):
                 rel = abs_err / max(float(r.abs().max()), 1e-300)
                 check(rel < TOL[dtype], f"kernel vs plain {dtype} "
                       f"({rows},{nx}): rel err {rel:.3e}")
-                key = (str(dtype).split(".")[-1], rows, nx)
+                key = (name_of(dtype), rows, nx)
                 errs[key] = max(errs.get(key, 0.0), abs_err)
             if rows == 32000:
-                timing[str(dtype).split(".")[-1]] = (
+                timing[name_of(dtype)] = (
                     cuda_ms(lambda: weno_x.weno_edges_x_cuda(f, tb), 200),
                     cuda_ms(lambda: weno_x.weno_edges_x_reference(f, tb),
                             20))
@@ -131,14 +186,14 @@ def phase_b4(p3_part2):
     """B4 kernel vs plain at the main path's shape and a ragged size, f64
     and f32; returns ({(dtype, shape): (max abs err kernel vs plain,
     points beyond the tolerance)}, {dtype: (kernel ms, plain ms)} at
-    (50, 65, 128)). f64: every field within 1e-12 of its largest |value|.
+    (50, 65, 128), the operations of one call there). f64: every field within 1e-12 of its largest |value|.
     f32: both the kernel and the plain version are held against the plain
     version in f64 on the same (rounded) inputs, at 1e-5; where a limiter
     drains a species to rounding noise, the final q < QSMALL clip goes
     either way in f32 and the number/rime fields differ there, so the
     kernel may have no more such points than 2x the plain version's
     (+10)."""
-    errs, timing = {}, {}
+    errs, timing, ops = {}, {}, 0
     for dtype in (torch.float64, torch.float32):
         for shape in ((50, 65, 128), (1000003,)):
             args64 = p3_part2.sample_inputs(shape, torch.float64, "cuda",
@@ -165,15 +220,128 @@ def phase_b4(p3_part2):
                       "(kernel/plain): " + ", ".join(
                           f"{k} {k_bad[k][0]}/{p_bad[k][0]}" for k in truth
                           if k_bad[k][0] or p_bad[k][0]), flush=True)
-            errs[(str(dtype).split(".")[-1], shape)] = (
+            errs[(name_of(dtype), shape)] = (
                 max(v[1] for v in vs_plain.values()),
                 sum(v[0] for v in vs_plain.values()))
             if shape == (50, 65, 128):
-                timing[str(dtype).split(".")[-1]] = (
+                timing[name_of(dtype)] = (
                     cuda_ms(lambda: p3_part2.p3_part2_cuda(*args), 50),
                     cuda_ms(lambda: p3_part2.p3_part2_reference(*args), 10))
+                ops = plain_ops(lambda: p3_part2.p3_part2_reference(*args))
             del args, args64, got, ref
-    return errs, timing
+    return errs, timing, ops
+
+
+B3_CASES = (   # (nens, ny, nz, nx, ntr, axis, a dz per member): see phase_b3
+    ("x", (128, 1, 50, 65, 3, 4, False)),
+    ("z", (128, 1, 50, 65, 3, 3, False)),
+    ("x ntr 10", (128, 1, 50, 65, 10, 4, False)),
+    ("z ntr 10", (128, 1, 50, 65, 10, 3, False)),
+    ("y 3-D", (4, 9, 11, 13, 3, 2, False)),
+    ("z ragged", (3, 5, 7, 37, 10, 3, False)),
+    ("z member dz", (128, 1, 50, 65, 3, 3, True)))
+
+
+def b3_inputs(nens, ny, nz, nx, ntr, axis, dtype, device, seed=0,
+              member_dz=False):
+    """Seeded inputs of ops/awfl_flux.py::flux_direction for comparing the
+    kernel with its plain version: ``(prim, trac, pres, levels)`` for an
+    (ny, nz, nx) grid, padded along ``axis``, as strided views of one
+    array padded in every direction (what the dycore passes). Smooth
+    waves plus noise and jumps, winds of both signs, and in z a stretched
+    grid with its per-level matrices (``levels`` is None otherwise): one
+    set for every member, or with ``member_dz`` a dz and a set of its own
+    for each."""
+    from pam_tpu_torch.ops import awfl_flux, recon_matrices as rm
+    HS, AX_Y, AX_Z, AX_X = (awfl_flux.HS, awfl_flux.AX_Y, awfl_flux.AX_Z,
+                            awfl_flux.AX_X)
+    rng = np.random.default_rng(seed)
+    full = [nens, ny + 2 * HS, nz + 2 * HS, nx + 2 * HS]
+    x = np.arange(full[3]) / nx
+    z = np.arange(full[2])[:, None] / nz
+
+    def fld(base, wave, noise):
+        f = base + wave * np.sin(2 * np.pi * (x + rng.random((nens, 1, 1, 1)))
+                                 ) * np.cos(np.pi * z)
+        f = f + noise * rng.standard_normal(full)
+        return f + np.where(rng.random(full) < 0.1,
+                            2 * noise * rng.standard_normal(full), 0.0)
+
+    fields = [fld(1.0, 0.05, 0.01), fld(2.0, 8.0, 2.0), fld(0.0, 4.0, 1.0),
+              fld(0.0, 1.0, 0.5), fld(300.0, 3.0, 0.5)]
+    fields += [np.abs(fld(0.0, 1e-3, 3e-4)) for _ in range(ntr)]
+    fields.append(fld(0.0, 80.0, 20.0))
+    allp = torch.as_tensor(np.stack(fields), dtype=dtype, device=device)
+    sl = [slice(None)] * 5
+    for a in (AX_Y, AX_Z, AX_X):
+        if a != axis:
+            sl[a] = slice(HS, -HS)
+    view = allp[tuple(sl)]
+    levels = None
+    if axis == AX_Z:
+        members = np.arange(nens if member_dz else 1)[:, None]
+        dz = 300.0 * (1.0 + 0.05 * members) * (
+            1.0 + 0.35 * np.sin(np.arange(nz) + members))
+        levels = awfl_flux.LevelMatrices.build(
+            *rm.vertical_recon_matrices(dz, awfl_flux.ORD), dtype, device)
+    return view[:5], view[5:5 + ntr], view[-1], levels
+
+
+def phase_b3(awfl_flux, weno):
+    """B3 kernel vs plain on the card, f64 at 1e-12 and f32 at 2e-5 of
+    each output's largest |value|: x at (6,400 rows, 65) and z at (8,320
+    rows, 50 levels, stretched dz, per-level matrices, mask on) with 3
+    and 10 tracers, y at a small 3-D shape, one ragged shape, and z with a
+    dz and a matrix set of its own for every member. The f32
+    kernel is also held against the plain version in f64 on the same
+    (rounded) inputs at 1e-3: float32 rounding through the limiter, which
+    the comparison above must not see and this one must. Returns
+    ({(dtype, case): max abs err}, {(dtype, "x" | "z" | "z member dz"):
+    (kernel ms, plain ms, bytes, flops)} at full width with 3 tracers, the
+    largest relative distance of the f32 kernel from the f64 result)."""
+    errs, timing, f32_off = {}, {}, 0.0
+    for dtype in (torch.float64, torch.float32):
+        tb = weno.weno_tables(5, dtype)
+        for case, (nens, ny, nz, nx, ntr, axis, member_dz) in B3_CASES:
+            prim, trac, pres, levels = b3_inputs(
+                nens, ny, nz, nx, ntr, axis, dtype, "cuda", seed=axis + ntr,
+                member_dz=member_dz)
+            got = awfl_flux.flux_direction_cuda(prim, trac, pres, axis, tb,
+                                                levels)
+            torch.cuda.synchronize()
+            ref = awfl_flux.flux_direction_reference(prim, trac, pres, axis,
+                                                     tb, levels)
+            worst = 0.0
+            for r, g in zip(torch.cat(ref), torch.cat(got)):
+                check(bool(torch.isfinite(g).all()), f"B3 {case}: not finite")
+                abs_err = float((r - g).abs().max())
+                rel = abs_err / max(float(r.abs().max()), 1e-300)
+                check(rel < TOL[dtype], f"B3 kernel vs plain {dtype} {case}: "
+                      f"rel err {rel:.3e}")
+                worst = max(worst, abs_err)
+            errs[(name_of(dtype), case)] = worst
+            if dtype == torch.float32:
+                truth = awfl_flux.flux_direction_reference(
+                    prim.double(), trac.double(), pres.double(), axis,
+                    weno.weno_tables(5, torch.float64),
+                    None if levels is None else levels.to(torch.float64))
+                for r, g in zip(torch.cat(truth), torch.cat(got)):
+                    f32_off = max(f32_off, float((r - g).abs().max())
+                                  / max(float(r.abs().max()), 1e-300))
+                del truth
+            if case in ("x", "z", "z member dz"):
+                run = lambda fn: fn(prim, trac, pres, axis, tb, levels)
+                timing[(name_of(dtype), case)] = (
+                    cuda_ms(lambda: run(awfl_flux.flux_direction_cuda), 100),
+                    cuda_ms(lambda: run(awfl_flux.flux_direction_reference),
+                            5),
+                    *awfl_flux.flux_work(prim.shape, ntr, axis,
+                                         prim.element_size(), tb,
+                                         matrix_sets=0 if levels is None
+                                         else levels.packed.shape[0]))
+            del prim, trac, pres, got, ref
+    check(0.0 < f32_off < 1e-3, f"B3 f32 kernel vs plain f64: {f32_off:.3e}")
+    return errs, timing, f32_off
 
 
 def run_steps(drv, state, nsteps):
@@ -248,7 +416,7 @@ def full_width(setup_supercell_mmf, gcm_forcing, counters, nens, dtype,
         setattr(obj, attr, 0)
     state, ms, wall = run_steps(drv, state, nsteps)
     counts = {k: getattr(obj, attr) for k, (obj, attr) in counters.items()}
-    tag = f"nens {nens} {str(dtype).split('.')[-1]}"
+    tag = f"nens {nens} {name_of(dtype)}"
     wmax = healthy(state, tag, water)
     steady = ms[1:]
     line = (f"{tag}: {nsteps} steps, ms/step (CUDA events) "
@@ -268,7 +436,8 @@ def main():
     from pam_tpu_torch.convert import state_from_numpy
     from pam_tpu_torch.driver.mmf import setup_supercell_mmf
     from pam_tpu_torch.modules import gcm_forcing
-    from pam_tpu_torch.ops import p3_part2, weno, weno_x
+    from pam_tpu_torch.dycore.awfl import AwflDycore
+    from pam_tpu_torch.ops import awfl_flux, p3_part2, weno, weno_x
     from pam_tpu_torch.physics.p3 import sedimentation
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -280,19 +449,25 @@ def main():
     weno_count = (weno_x.weno_edges_x_cuda, "launches")
     b4_count = (p3_part2.p3_part2_cuda, "launches")
     sed_count = (sedimentation.combined_sedimentation, "rounds")
+    b3_count = (awfl_flux.flux_direction_cuda, "launches")
+    cycle_count = (AwflDycore.timestep, "cycles")
 
-    # 2. build from pam_tpu_torch/csrc alone (every csrc/*.cu in one nvcc)
+    # 2. build from pam_tpu_torch/csrc alone (one nvcc over csrc/*.cu)
     build = _cuda.build()
     _cuda.library()
     print(f"phase 2 build: {build.seconds:.2f} s {build.path.name}; "
           f"{ptxas_summary(build.log)}", flush=True)
 
     # 3. x-WENO kernel vs plain on the card
+    b1_bounds = {name_of(d): bound_ms(
+        *weno_x.weno_x_work(32000, 65, size, weno.weno_tables(5, d)), d)
+        for d, size in ((torch.float32, 4), (torch.float64, 8))}
     errs, timing = phase_kernel(weno, weno_x)
     print("phase 3 kernel vs plain: max abs err " +
           ", ".join(f"{d}{(r, n)} {e:.3e}" for (d, r, n), e in errs.items()) +
-          "; (32000,65) us/call kernel/plain " +
-          ", ".join(f"{d} {k * 1e3:.2f}/{p * 1e3:.2f}"
+          "; (32000,65) us/call kernel/plain (bound) " +
+          ", ".join(f"{d} {k * 1e3:.2f}/{p * 1e3:.2f} "
+                    f"({b1_bounds[d][0] * 1e3:.2f} by {b1_bounds[d][1]})"
                     for d, (k, p) in timing.items()), flush=True)
 
     # 4. Kessler golden trajectory on the card, f64, through the kernel
@@ -305,9 +480,9 @@ def main():
     print("phase 4 golden f64 10 steps: max rel err " +
           ", ".join(f"{k} {e:.2e}" for k, e in gerr.items()), flush=True)
 
-    # 5. Kessler at full width: nens 128 f32 for one GCM step, then
+    # 5. Kessler at full width: nens 128 f32 for 10 steps, then
     #    nens 1024 f32 and nens 128 f64
-    for nens, dtype, nsteps in ((128, torch.float32, 45),
+    for nens, dtype, nsteps in ((128, torch.float32, 10),
                                 (1024, torch.float32, 5),
                                 (128, torch.float64, 5)):
         line, counts = full_width(setup_supercell_mmf, gcm_forcing,
@@ -318,14 +493,20 @@ def main():
         print(f"phase 5 {line}", flush=True)
 
     # 6. B4 (P3 part 2) kernel vs plain on the card
-    b4_errs, b4_timing = phase_b4(p3_part2)
+    b4_errs, b4_timing, b4_ops = phase_b4(p3_part2)
+    n_b4 = 50 * 65 * 128
+    b4_bounds = {name_of(d): bound_ms(
+        (p3_part2.N_IN_READ + p3_part2.N_OUT) * n_b4 * size, b4_ops, d)
+        for d, size in ((torch.float32, 4), (torch.float64, 8))}
     print("phase 6 B4 kernel vs plain: max abs err (points beyond "
           "1e-12 f64 / 1e-5 f32 of the field's max) " +
           ", ".join(f"{d}{s} {e:.3e} ({n})"
                     for (d, s), (e, n) in b4_errs.items()) +
-          "; (50,65,128) us/call kernel/plain " +
-          ", ".join(f"{d} {k * 1e3:.2f}/{p * 1e3:.2f}"
-                    for d, (k, p) in b4_timing.items()), flush=True)
+          "; (50,65,128) us/call kernel/plain (bound) " +
+          ", ".join(f"{d} {k * 1e3:.2f}/{p * 1e3:.2f} "
+                    f"({b4_bounds[d][0] * 1e3:.2f} by {b4_bounds[d][1]})"
+                    for d, (k, p) in b4_timing.items()) +
+          f"; {b4_ops / n_b4:.0f} operations per point", flush=True)
 
     # 7. P3+SHOC golden trajectory on the card, f64, through both kernels
     for obj, attr in (weno_count, b4_count, sed_count):
@@ -345,10 +526,10 @@ def main():
           "; sedimentation rounds "
           f"{sedimentation.combined_sedimentation.rounds}", flush=True)
 
-    # 8. P3+SHOC at full width (this slice's main path): nens 128 f32 for
-    #    one GCM step, then nens 1024 f32 and nens 128 f64
+    # 8. P3+SHOC at full width (the main path of B1 and B4): nens 128 f32
+    #    for 10 steps, then nens 1024 f32 and nens 128 f64
     main_counts = None
-    for nens, dtype, nsteps in ((128, torch.float32, 45),
+    for nens, dtype, nsteps in ((128, torch.float32, 10),
                                 (1024, torch.float32, 5),
                                 (128, torch.float64, 5)):
         line, counts = full_width(
@@ -363,22 +544,94 @@ def main():
             main_counts = counts
         print(f"phase 8 P3+SHOC {line}", flush=True)
 
+    # 9. B3 (AWFL directional flux) kernel vs plain on the card
+    b3_errs, b3_timing, f32_off = phase_b3(awfl_flux, weno)
+    print("phase 9 B3 kernel vs plain: max abs err " +
+          ", ".join(f"{d} {c} {e:.3e}" for (d, c), e in b3_errs.items()) +
+          f"; f32 kernel vs plain in f64, max rel err {f32_off:.3e}"
+          "; 65x1x50 nens 128 ntr 3 us/call kernel/plain (bound) " +
+          ", ".join(f"{d} {c} {k * 1e3:.2f}/{p * 1e3:.2f} "
+                    f"({bound_ms(nb, fl, getattr(torch, d))[0] * 1e3:.2f} by "
+                    f"{bound_ms(nb, fl, getattr(torch, d))[1]})"
+                    for (d, c), (k, p, nb, fl) in b3_timing.items()),
+          flush=True)
+
+    # 10. AWFL+Kessler reference trajectory on the card, f64, 5 steps
+    #     through the kernel
+    for obj, attr in (b3_count, cycle_count):
+        setattr(obj, attr, 0)
+    state = golden_run(setup_supercell_mmf, state_from_numpy, "awfl_kessler",
+                       nsteps=5, dycore="awfl")
+    cycles = AwflDycore.timestep.cycles
+    check(cycles >= 5 and awfl_flux.flux_direction_cuda.launches
+          == cycles * FLUX_CALLS_PER_CYCLE,
+          f"AWFL golden run: {awfl_flux.flux_direction_cuda.launches} B3 "
+          f"launches in {cycles} sub-cycles")
+    operr = golden_errors(state, "awfl_kessler_opbyop", {})
+    gerr = golden_errors(state, "awfl_kessler", {})
+    print(f"phase 10 AWFL+Kessler f64 5 steps, {cycles} sub-cycles, "
+          f"{awfl_flux.flux_direction_cuda.launches} B3 launches: max rel "
+          "err vs pam_tpu op by op " +
+          ", ".join(f"{k} {e:.2e}" for k, e in operr.items()) +
+          "; vs pam_tpu jitted " +
+          ", ".join(f"{k} {e:.2e}" for k, e in gerr.items()), flush=True)
+
+    # 11. AWFL+Kessler at full width (the main path of B3): nens 128 f32
+    #     for 10 steps, then nens 1024 f32 and nens 128 f64
+    awfl_counts = None
+    for nens, dtype, nsteps in ((128, torch.float32, 10),
+                                (1024, torch.float32, 3),
+                                (128, torch.float64, 3)):
+        line, counts = full_width(
+            setup_supercell_mmf, gcm_forcing,
+            {"awfl_flux": b3_count, "sub_cycles": cycle_count}, nens, dtype,
+            nsteps, WATER, dycore="awfl")
+        check(counts["sub_cycles"] >= nsteps and counts["awfl_flux"]
+              == counts["sub_cycles"] * FLUX_CALLS_PER_CYCLE,
+              f"phase 11: {counts} in {nsteps} steps")
+        if awfl_counts is None:
+            awfl_counts = counts
+        print(f"phase 11 AWFL+Kessler {line}, per step "
+              f"{counts['sub_cycles'] / nsteps:.1f} sub-cycles "
+              f"{counts['awfl_flux'] / nsteps:.1f} B3 launches", flush=True)
+
+    # the kernels' record: float32 times at the main path's shapes; no
+    # single PyTorch call computes any of the three functions
     k32, p32 = timing["float32"]
     b32, bp32 = b4_timing["float32"]
+    b1_bound = b1_bounds["float32"]
+    b4_bound = b4_bounds["float32"]
+    # B3: the z call, the slower half of the main path's launches, under
+    # the contract's keys, and the x call beside it
+    z32, zp32, z_bytes, z_flops = b3_timing[("float32", "z")]
+    x32, xp32, x_bytes, x_flops = b3_timing[("float32", "x")]
+    b3_bound = bound_ms(z_bytes, z_flops, torch.float32)
     print(json.dumps({"kernels": [
         {"name": "weno_x", "route": "cuda",
          "source": "pam_tpu_torch/csrc/weno_x.cu",
          "replaces": "pam_tpu/ops/weno_x_pallas.py:46",
          "launches": main_counts["weno_x"],
          "max_abs_err": max(errs.values()),
-         "ms": k32, "plain_ms": p32},
+         "ms": k32, "plain_ms": p32, "bound_ms": b1_bound[0],
+         "bound_by": b1_bound[1], "library_ms": None},
         {"name": "p3_part2", "route": "cuda",
          "source": "pam_tpu_torch/csrc/p3_part2.cu",
          "replaces": "pam_tpu/physics/p3/main.py:780",
          "launches": main_counts["p3_part2"],
          "max_abs_err": max(e for (d, _), (e, _) in b4_errs.items()
                             if d == "float64"),
-         "ms": b32, "plain_ms": bp32}]}))
+         "ms": b32, "plain_ms": bp32, "bound_ms": b4_bound[0],
+         "bound_by": b4_bound[1], "library_ms": None},
+        {"name": "awfl_flux", "route": "cuda",
+         "source": "pam_tpu_torch/csrc/awfl_flux.cu",
+         "replaces": "pam_tpu/ops/awfl_pallas.py:148",
+         "launches": awfl_counts["awfl_flux"],
+         "max_abs_err": max(e for (d, _), e in b3_errs.items()
+                            if d == "float64"),
+         "ms": z32, "plain_ms": zp32, "bound_ms": b3_bound[0],
+         "bound_by": b3_bound[1], "library_ms": None,
+         "ms_x": x32, "plain_ms_x": xp32,
+         "bound_ms_x": bound_ms(x_bytes, x_flops, torch.float32)[0]}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

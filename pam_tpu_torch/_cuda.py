@@ -107,4 +107,15 @@ def library() -> ctypes.CDLL:
     if lib.pam_p3_part2_layout() != want:
         raise RuntimeError("csrc/p3_part2.cu expects another argument "
                            "layout than ops/p3_part2.py passes")
+    for name in ("pam_awfl_flux_f32", "pam_awfl_flux_f64"):
+        fn = getattr(lib, name)
+        fn.argtypes = [ptr, ptr, ctypes.c_double, ptr]
+        fn.restype = i32
+    lib.pam_awfl_flux_layout.argtypes = []
+    lib.pam_awfl_flux_layout.restype = i32
+    from .ops import awfl_flux
+    want = awfl_flux.N_ARGS * 1000000 + 101 * 1000 + awfl_flux.LEVEL_STRIDE
+    if lib.pam_awfl_flux_layout() != want:
+        raise RuntimeError("csrc/awfl_flux.cu expects another argument or "
+                           "table layout than ops/awfl_flux.py passes")
     return lib

@@ -64,6 +64,10 @@ class Coupler:
     def dy(self) -> float:
         return self.ylen / self.ny
 
+    @property
+    def sim2d(self) -> bool:
+        return self.ny == 1
+
     # ---- tracer registry (ref: pam_coupler.h:206-251) ----
     def add_tracer(self, name: str, desc: str = "", positive: bool = True,
                    adds_mass: bool = True) -> "Coupler":
@@ -74,12 +78,27 @@ class Coupler:
                                                  adds_mass),))
 
     @property
+    def num_tracers(self) -> int:
+        return len(self.tracers)
+
+    @property
     def tracer_names(self) -> tuple[str, ...]:
         return tuple(t.name for t in self.tracers)
+
+    def tracer_index(self, name: str) -> int:
+        return self.tracer_names.index(name)
 
     @property
     def tracer_positive(self) -> np.ndarray:
         return np.array([t.positive for t in self.tracers])
+
+    @property
+    def tracer_adds_mass(self) -> np.ndarray:
+        return np.array([t.adds_mass for t in self.tracers])
+
+    @property
+    def idWV(self) -> int:
+        return self.tracer_index("water_vapor")
 
     def with_options(self, **kw) -> "Coupler":
         opts = dict(self.options)
@@ -121,6 +140,17 @@ class Coupler:
         c = self.const
         return (state["density_dry"] * c.R_d +
                 state["water_vapor"] * c.R_v) * state["temp"]
+
+    def stack_tracers(self, state) -> torch.Tensor:
+        """(ntr, nens, nz, ny, nx) stack of all tracers (the reference's
+        MultiField pattern, pam_core/MultipleFields.h)."""
+        return torch.stack([state[n] for n in self.tracer_names])
+
+    def unstack_tracers(self, state, stacked) -> dict:
+        out = dict(state)
+        for i, n in enumerate(self.tracer_names):
+            out[n] = stacked[i]
+        return out
 
 
 def hmean(x: torch.Tensor) -> torch.Tensor:

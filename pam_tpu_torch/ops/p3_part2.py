@@ -27,6 +27,9 @@ p3_part2_reference = p3main._part2_core
 
 N_IN = 10 + len(p3main._PART2_ST_KEYS) + 8 + len(p3main._PART2_TV_NAMES)
 N_OUT = len(p3main._PART2_OUT_KEYS) + 8 + len(p3main._PART2_DIAG_KEYS)
+# of its N_IN inputs part 2 reads 57: its bytes are (N_IN_READ + N_OUT)
+# arrays of one value per point (csrc/p3_part2.cu, "What bounds it")
+N_IN_READ = 57
 
 
 def _constants() -> np.ndarray:

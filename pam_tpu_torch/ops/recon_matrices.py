@@ -1,10 +1,11 @@
 """Polynomial reconstruction matrices for finite-volume WENO schemes.
 
-Numpy-only copy of the uniform-grid part of pam_tpu/ops/recon_matrices.py
-(the per-level variable-grid builders wait for the stretched-grid slice,
-ROADMAP queue A). Every matrix is derived from first principles with
-numpy at setup time, matching the reference's generated tables
-(dynamics/awfl/TransformMatrices.h).
+Numpy-only copy of pam_tpu/ops/recon_matrices.py without
+``mirror_recon_matrices`` (the mirror-halo matrices of SPAM's stretched
+grids, not ported yet). Every matrix is derived from first principles
+with numpy at setup time, for uniform and stretched grids alike, matching
+the reference's generated tables (dynamics/awfl/TransformMatrices.h,
+TransformMatrices_variable.h).
 
 Conventions: coordinates normalized by the central cell width, the
 central cell spanning [-1/2, +1/2]; ``sten_to_coefs`` maps ord cell
@@ -56,10 +57,21 @@ def _avg_matrix(locs: np.ndarray, first: int, n: int) -> np.ndarray:
     return A
 
 
-def sten_to_coefs(ord: int) -> np.ndarray:
+def _locs(locs_or_ord) -> np.ndarray:
+    """Normalized edge locations from an integer order (uniform grid) or
+    an array of ord+1 edge locations (variable grid)."""
+    if np.isscalar(locs_or_ord):
+        return normalized_edge_locs(int(locs_or_ord))
+    return np.asarray(locs_or_ord, dtype=np.float64)
+
+
+def sten_to_coefs(locs_or_ord) -> np.ndarray:
     """(ord, ord) matrix mapping ord cell averages -> monomial coefficients
-    (row index = coefficient power; ref TransformMatrices::sten_to_coefs)."""
-    return np.linalg.inv(_avg_matrix(normalized_edge_locs(ord), 0, ord))
+    (row index = coefficient power). ``locs_or_ord``: an integer order
+    (uniform grid) or ord+1 normalized edge locations (variable grid; ref
+    TransformMatrices::sten_to_coefs, sten_to_coefs_variable)."""
+    locs = _locs(locs_or_ord)
+    return np.linalg.inv(_avg_matrix(locs, 0, len(locs) - 1))
 
 
 def coefs_to_gll_lower(ord: int) -> np.ndarray:
@@ -71,15 +83,16 @@ def coefs_to_gll_lower(ord: int) -> np.ndarray:
     return out
 
 
-def weno_lower_sten_to_coefs(ord: int) -> np.ndarray:
+def weno_lower_sten_to_coefs(locs_or_ord) -> np.ndarray:
     """(hs, hs, hs) low-order reconstruction matrices, hs = (ord+1)//2.
 
     result[i, s, c]: contribution of cell average ``u[i+s]`` to monomial
     coefficient ``c`` of the degree-(hs-1) polynomial on sub-stencil ``i``
     (cells i..i+hs-1 of the full stencil), in global normalized coordinates.
+    ``locs_or_ord`` as for :func:`sten_to_coefs`.
     """
-    locs = normalized_edge_locs(ord)
-    hs = (ord + 1) // 2
+    locs = _locs(locs_or_ord)
+    hs = len(locs) // 2
     out = np.empty((hs, hs, hs))
     for i in range(hs):
         out[i] = np.linalg.inv(_avg_matrix(locs, i, hs)).T  # out[i, s, c]
@@ -131,3 +144,43 @@ def weno_ideal_weights(ord: int) -> tuple[np.ndarray, float]:
         idl = np.ones(hs + 2)
     idl = idl / idl.sum()
     return idl, sigma
+
+
+def vertical_recon_matrices(dz: np.ndarray,
+                            ord: int) -> tuple[np.ndarray, np.ndarray]:
+    """Per-interface variable-grid reconstruction matrices for a stretched
+    vertical column (ref: the per-level setup of dynamics/awfl/
+    Dycore.h:897-940).
+
+    Matrix index ``k`` (0..nz+1) serves vertical face ``k - k_upw``; its
+    stencil's central cell is cell ``k-1`` and the face is an edge of that
+    cell. For each k the ord-cell stencil of absolute cells
+    ``k-1-(ord//2) .. k-1+(ord//2)`` is clamped into [0, nz-1] (halo
+    cells), its widths normalized by the central cell's width, and shifted
+    so the central cell spans [-1/2, 1/2]. On a uniform grid every matrix
+    equals the uniform one.
+
+    dz: (nz,) or (nens, nz) cell thicknesses. Returns (s2c, wrl) of shapes
+    (..., nz+2, ord, ord) and (..., nz+2, hs, hs, hs)."""
+    dz = np.asarray(dz, dtype=np.float64)
+    squeeze = dz.ndim == 1
+    if squeeze:
+        dz = dz[None, :]
+    nens, nz = dz.shape
+    hs = (ord + 1) // 2
+    half = ord // 2
+    s2c = np.empty((nens, nz + 2, ord, ord))
+    wrl = np.empty((nens, nz + 2, hs, hs, hs))
+    for e in range(nens):
+        for k in range(nz + 2):
+            center = min(nz - 1, max(0, k - 1))
+            cells = [min(nz - 1, max(0, k - 1 - half + kk))
+                     for kk in range(ord)]
+            dzloc = dz[e, cells] / dz[e, center]
+            locs = np.concatenate(([0.0], np.cumsum(dzloc)))
+            locs -= 0.5 * (locs[half] + locs[half + 1])
+            s2c[e, k] = sten_to_coefs(locs)
+            wrl[e, k] = weno_lower_sten_to_coefs(locs)
+    if squeeze:
+        return s2c[0], wrl[0]
+    return s2c, wrl

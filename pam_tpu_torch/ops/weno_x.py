@@ -31,6 +31,18 @@ def weno_edges_x_reference(field: torch.Tensor, tables):
     return weno.weno_edges_list(sten, s2c, wrl, tvh, tvl, idl, sigma, c2g)
 
 
+def weno_x_work(rows, nx, itemsize, tables):
+    """(bytes, flops) one call needs: the field read once, both edge
+    arrays written once; per cell the limiter, then per edge the
+    candidates evaluated there and their weighted sum
+    (``weno.weno_edges_list``)."""
+    ord = tables[0].shape[-1]
+    hs = (ord + 1) // 2
+    per_edge = hs * (2 * hs - 1) + (2 * ord - 1) + (2 * (hs + 1) - 1)
+    return (3 * rows * nx * itemsize,
+            rows * nx * (weno.limiter_flops(tables) + 2 * per_edge))
+
+
 def _packed_tables(tables) -> np.ndarray:
     """The tables as the kernel's 101 float64 values (csrc/weno_x.cu)."""
     s2c, wrl, tvh, tvl, c2g, idl, sigma = tables

@@ -1,8 +1,9 @@
 """Where the time of one CRM physics step goes on a CUDA card.
 
 Builds the MMF configuration of inputs/input_pamc.yaml (65x1x50 cells,
-128 km x 64 km x 20 km, dt 20 s, SPAM+SI) with Kessler microphysics, or
-with P3 and SHOC (``--micro p3 --sgs shoc``, the production physics), as
+128 km x 64 km x 20 km, dt 20 s) with the SPAM+SI dycore or the AWFL
+dycore (``--dycore awfl``, PAM-A), with Kessler microphysics or with P3
+and SHOC (``--micro p3 --sgs shoc``, the production physics), as
 chip_smoke.py does, runs warmup steps, times steps without the profiler
 (CUDA events), then traces steps with torch.profiler and prints, per
 step:
@@ -12,14 +13,19 @@ step:
   intervals (kernels, copies, sets) over the span from the first to the
   last of them;
 - device and host time of each labelled layer (the ``pam:`` spans of
-  ``MmfDriver`` and ``si_step``); host times are inflated by the
-  profiler, device times are not;
+  ``MmfDriver``, ``si_step`` and ``AwflDycore``: ``pam:awfl.tendencies``
+  and, inside it, ``pam:awfl.flux_x``, ``flux_z`` and ``fct``); host
+  times are inflated by the profiler, device times are not; for AWFL
+  also the sub-cycles per step;
+- the package's own CUDA kernels (csrc/*.cu): they are launched through
+  ctypes, so the profiler does not attribute their device time to the
+  span that encloses the launch, and the layer rows above leave it out;
 - the kernels that take the most device time.
 
 Usage (on a machine with the card):
 
     python -m pam_tpu_torch.profile_step [--nens 128] [--dtype f32]
-        [--micro kessler|p3] [--sgs none|shoc]
+        [--micro kessler|p3] [--sgs none|shoc] [--dycore spam|awfl]
 """
 
 from __future__ import annotations
@@ -35,12 +41,14 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from .driver.mmf import setup_supercell_mmf
+from .dycore.awfl import AwflDycore
 from .modules import gcm_forcing
 
 FULL = dict(nx=65, ny=1, nz=50, xlen=128000.0, ylen=64000.0, zlen=20000.0,
-            dt_gcm=900.0, dt_crm_phys=20.0, dycore="spam")
+            dt_gcm=900.0, dt_crm_phys=20.0)
 DTYPES = {"f32": torch.float32, "f64": torch.float64}
 WARMUP, STEPS, TOP = 3, 5, 12
+OWN_KERNELS = ("weno_x_kernel", "p3_part2_kernel", "awfl_flux_kernel")
 
 
 def timed_steps(drv, state, nsteps):
@@ -115,6 +123,7 @@ def main(argv=None):
     ap.add_argument("--dtype", choices=sorted(DTYPES), default="f32")
     ap.add_argument("--micro", choices=("kessler", "p3"), default="kessler")
     ap.add_argument("--sgs", choices=("none", "shoc"), default="none")
+    ap.add_argument("--dycore", choices=("spam", "awfl"), default="spam")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_step: torch.cuda.is_available() is false")
@@ -126,16 +135,20 @@ def main(argv=None):
     drv, state = setup_supercell_mmf(nens=args.nens,
                                      dtype=DTYPES[args.dtype],
                                      device="cuda", micro=args.micro,
-                                     sgs=args.sgs, **FULL)
+                                     sgs=args.sgs, dycore=args.dycore, **FULL)
     state = gcm_forcing.compute_gcm_forcing_tendencies(drv.coupler, state,
                                                        drv.dt_gcm)
     for _ in range(WARMUP):
         state = drv.crm_phys_step(state)
+    cycles = AwflDycore.timestep.cycles
     state, ms, host = timed_steps(drv, state, STEPS)
-    print(f"{args.micro}+{args.sgs} nens {args.nens} {args.dtype}, "
-          f"unprofiled {STEPS} steps: "
+    print(f"{args.dycore} {args.micro}+{args.sgs} nens {args.nens} "
+          f"{args.dtype}, unprofiled {STEPS} steps: "
           f"ms/step (CUDA events) mean {np.mean(ms):.3f} median "
           f"{np.median(ms):.3f}, host {host:.3f} ms/step")
+    if args.dycore == "awfl":
+        print(f"AWFL sub-cycles per step: "
+              f"{(AwflDycore.timestep.cycles - cycles) / STEPS:.1f}")
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -150,6 +163,12 @@ def main(argv=None):
     print("layer: device ms/step, host ms/step (profiled)")
     for name, (d, h) in sorted(r["layers"].items(), key=lambda kv: -kv[1][0]):
         print(f"  {name:28s} {d:9.3f} {h:9.3f}")
+    print("csrc kernels (not in the layer rows): calls/step, ms/step, name")
+    for name, (n, us) in r["top"]:
+        own = [k for k in OWN_KERNELS if k in name]
+        if own:
+            print(f"  {n / STEPS:7.1f} {us / STEPS / 1e3:8.3f}  "
+                  f"{name[name.index(own[0]):][:60]}")
     print(f"top {TOP} device ops: calls/step, ms/step, name")
     for name, (n, us) in r["top"][:TOP]:
         print(f"  {n / STEPS:7.1f} {us / STEPS / 1e3:8.3f}  "

@@ -2,7 +2,8 @@
 interpreter where importing either fails, the package imports and one
 full crm_phys_step runs at a tiny size, with Kessler and with P3+SHOC
 (whose lookup table is read from pam_tpu's directory as a file, not
-imported)."""
+imported) under SPAM, and with Kessler under the AWFL dycore; the AWFL
+thermal bubble takes a step through AwflDycore alone."""
 
 import os
 import subprocess
@@ -19,19 +20,33 @@ import pam_tpu_torch
 from pam_tpu_torch import convert, profile_step
 from pam_tpu_torch.driver.mmf import setup_supercell_mmf
 from pam_tpu_torch.modules import gcm_forcing, saturation
-from pam_tpu_torch.ops import p3_part2
+from pam_tpu_torch.core.coupler import Coupler
+from pam_tpu_torch.dycore import AwflDycore, awfl_init
+from pam_tpu_torch.ops import awfl_flux, p3_part2
 from pam_tpu_torch.physics import p3
 from pam_tpu_torch.physics.sgs import shoc
-for micro, sgs in (("kessler", "none"), ("p3", "shoc")):
+for micro, sgs, dycore in (("kessler", "none", "spam"),
+                           ("p3", "shoc", "spam"),
+                           ("kessler", "none", "awfl")):
     drv, state = setup_supercell_mmf(nx=8, ny=1, nz=8, nens=1, xlen=16000.0,
                                      ylen=64000.0, zlen=16000.0, dt_gcm=40.0,
                                      dt_crm_phys=20.0, dtype=torch.float64,
-                                     device="cpu", micro=micro, sgs=sgs)
+                                     device="cpu", micro=micro, sgs=sgs,
+                                     dycore=dycore)
     state = gcm_forcing.compute_gcm_forcing_tendencies(drv.coupler, state,
                                                        40.0)
     state = drv.crm_phys_step(state)
     out = convert.state_to_numpy(state)
-    assert all(np.isfinite(v).all() for v in out.values()), micro
+    assert all(np.isfinite(v).all() for v in out.values()), (micro, dycore)
+assert isinstance(drv.dycore, AwflDycore) and AwflDycore.timestep.cycles > 0
+cpl = Coupler(nz=8, ny=1, nx=12, nens=1, xlen=12000.0, ylen=12000.0,
+              dtype=torch.float64, device=torch.device("cpu"))
+cpl = cpl.add_tracer("water_vapor")
+zint = np.linspace(0.0, 8000.0, 9)
+state = awfl_init.init_thermal(cpl, cpl.allocate_state(zint))
+state = AwflDycore.build(cpl, np.diff(zint)).timestep(state, 5.0)
+assert float(state["wvel"].max()) > 0.0
+assert awfl_flux.flux_direction_cuda.launches == 0
 loaded = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
           or m == "pam_tpu" or m.startswith("pam_tpu.")]
 assert all(sys.modules[m] is None for m in loaded), loaded
