@@ -14,8 +14,12 @@ JSON record (per kernel: launches on its main path, error against the
 plain version, ms per call of the kernel and of the plain version in
 float32, and the least time the card could take for the same bytes and
 operations; for the AWFL flux those of the z call, the slower half of its
-launches, with the x call's beside them), the last line {"ok": true,
-"device": {...}}. Any failed
+launches, with the x call's beside them), the line before it the two WENO
+kernels' times beside those of the kernels they replaced, the last line
+{"ok": true, "device": {...}}. A kernel's time is device time: its
+launches are replayed from a CUDA graph, because launched one by one from
+Python these kernels are timed at the host's launch rate; the time of
+such eager launches stands beside it. Any failed
 check raises, so the exit code is then not 0 and no result is printed.
 Needs no network and imports nothing of JAX.
 """
@@ -55,6 +59,11 @@ P3_GOLDEN_TOL = {"wvel": 1e-7, "cloud_water": 5e-9, "rain": 1.1e-5,
 WENO_CALLS_PER_STEP = 6
 # AWFL flux calls per sub-cycle in 2-D: 3 SSPRK3 stages, x and z
 FLUX_CALLS_PER_CYCLE = 6
+# the kernels that csrc/weno_x.cu and csrc/awfl_flux.cu held before they
+# were rebuilt on csrc/weno5.cuh: us per call, (f32, f64), by eager
+# launches on an NVIDIA H100 80GB HBM3 at 700.00 W (PERF.md section 6)
+PREVIOUS_US = {"B1": (53.08, 89.71), "B3 x": (112.57, 230.48),
+               "B3 z": (120.90, 238.50), "B3 z member dz": (121.56, 243.00)}
 # published peaks of one H100 SXM (NVIDIA's data sheet): device memory
 # rate, float32 outside the tensor cores, float64 at half that rate
 PEAK_BYTES_S = 3.35e12
@@ -124,8 +133,9 @@ def ptxas_summary(log):
             tail = ln.split(kernel + "_kernel", 1)[-1]
             name = kernel + "/" + ("f64" if tail.startswith("Id") else
                                    "f32" if tail.startswith("If") else "?")
-            if kernel == "awfl_flux":
-                name += "/levels" if "Lb1E" in tail else "/uniform"
+            if kernel == "awfl_flux":   # <T, per-level matrices, along x>
+                name += ("/levels" if tail[2:].startswith("Lb1E") else
+                         "/uniform") + ("/x" if "ELb1EE" in tail else "/yz")
         elif "spill" in ln or "registers" in ln:
             out.append(f"{name}: {ln.split(':', 1)[-1].strip()}")
     return " | ".join(out)
@@ -146,12 +156,46 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(fn, reps, per_graph=20):
+    """Mean milliseconds of device time per call of fn, a kernel's
+    wrapper: per_graph calls are captured into one CUDA graph (the
+    wrapper launches on the capturing stream) and the graph is replayed
+    until reps calls have run."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(per_graph):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    replays = max(1, reps // per_graph)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (replays * per_graph)
+
+
+# (rows, nx) of the x-WENO comparison: the main path's, then a last block
+# that is not full, nx of 5, 6, 128 and 257, a row wider than the tile
+# (cut into segments) and the narrowest row
+B1_CASES = ((32000, 65), (6272, 65), (37, 16), (1001, 65), (9, 5), (7, 6),
+            (3, 128), (5, 257), (3, 5000), (1, 3))
+
+
 def phase_kernel(weno, weno_x):
-    """Kernel vs plain at the main path's shapes, f32 and f64."""
+    """Kernel vs plain at the main path's shapes and at B1_CASES, f32 and
+    f64; returns ({(dtype, rows, nx): max abs err}, {dtype: (kernel ms by
+    graph replay, kernel ms by eager launches, plain ms)} at (32000, 65))."""
     errs, timing = {}, {}
     for dtype in (torch.float32, torch.float64):
         tb = weno.weno_tables(5, dtype)
-        for rows, nx in ((32000, 65), (6272, 65), (37, 16)):
+        for rows, nx in B1_CASES:
             f = field(rows, nx, dtype, seed=rows)
             got = weno_x.weno_edges_x_cuda(f, tb)
             torch.cuda.synchronize()
@@ -165,6 +209,7 @@ def phase_kernel(weno, weno_x):
                 errs[key] = max(errs.get(key, 0.0), abs_err)
             if rows == 32000:
                 timing[name_of(dtype)] = (
+                    graph_ms(lambda: weno_x.weno_edges_x_cuda(f, tb), 400),
                     cuda_ms(lambda: weno_x.weno_edges_x_cuda(f, tb), 200),
                     cuda_ms(lambda: weno_x.weno_edges_x_reference(f, tb),
                             20))
@@ -185,8 +230,9 @@ def b4_beyond(ref, got, tol):
 def phase_b4(p3_part2):
     """B4 kernel vs plain at the main path's shape and a ragged size, f64
     and f32; returns ({(dtype, shape): (max abs err kernel vs plain,
-    points beyond the tolerance)}, {dtype: (kernel ms, plain ms)} at
-    (50, 65, 128), the operations of one call there). f64: every field within 1e-12 of its largest |value|.
+    points beyond the tolerance)}, {dtype: (kernel ms by graph replay,
+    kernel ms by eager launches, plain ms)} at (50, 65, 128), the
+    operations of one call there). f64: every field within 1e-12 of its largest |value|.
     f32: both the kernel and the plain version are held against the plain
     version in f64 on the same (rounded) inputs, at 1e-5; where a limiter
     drains a species to rounding noise, the final q < QSMALL clip goes
@@ -225,6 +271,7 @@ def phase_b4(p3_part2):
                 sum(v[0] for v in vs_plain.values()))
             if shape == (50, 65, 128):
                 timing[name_of(dtype)] = (
+                    graph_ms(lambda: p3_part2.p3_part2_cuda(*args), 100),
                     cuda_ms(lambda: p3_part2.p3_part2_cuda(*args), 50),
                     cuda_ms(lambda: p3_part2.p3_part2_reference(*args), 10))
                 ops = plain_ops(lambda: p3_part2.p3_part2_reference(*args))
@@ -232,14 +279,23 @@ def phase_b4(p3_part2):
     return errs, timing, ops
 
 
-B3_CASES = (   # (nens, ny, nz, nx, ntr, axis, a dz per member): see phase_b3
-    ("x", (128, 1, 50, 65, 3, 4, False)),
-    ("z", (128, 1, 50, 65, 3, 3, False)),
-    ("x ntr 10", (128, 1, 50, 65, 10, 4, False)),
-    ("z ntr 10", (128, 1, 50, 65, 10, 3, False)),
-    ("y 3-D", (4, 9, 11, 13, 3, 2, False)),
-    ("z ragged", (3, 5, 7, 37, 10, 3, False)),
-    ("z member dz", (128, 1, 50, 65, 3, 3, True)))
+B3_CASES = (   # (nens, ny, nz, nx, ntr, axis, a dz per member, member step)
+    ("x", (128, 1, 50, 65, 3, 4, False, 1)),
+    ("z", (128, 1, 50, 65, 3, 3, False, 1)),
+    ("x ntr 10", (128, 1, 50, 65, 10, 4, False, 1)),
+    ("z ntr 10", (128, 1, 50, 65, 10, 3, False, 1)),
+    ("y 3-D", (4, 9, 11, 13, 3, 2, False, 1)),
+    ("z ragged", (3, 5, 7, 37, 10, 3, False, 1)),
+    ("z member dz", (128, 1, 50, 65, 3, 3, True, 1)),
+    # faces that the tile (4 along y and z) or the block's run (255 cells
+    # along x) does not divide, no tracers, and every second member of a
+    # larger array (a member stride that is not the array's own)
+    ("x ragged ntr 0", (3, 2, 5, 129, 0, 4, False, 1)),
+    ("z 13 faces ntr 0", (2, 3, 12, 37, 0, 3, False, 1)),
+    ("y 3-D 19 faces", (2, 18, 4, 33, 3, 2, False, 1)),
+    ("z members ::2", (6, 2, 9, 21, 3, 3, False, 2)),
+    ("x members ::2", (6, 1, 9, 70, 10, 4, False, 2)),
+    ("z member dz ragged", (5, 3, 9, 37, 3, 3, True, 1)))
 
 
 def b3_inputs(nens, ny, nz, nx, ntr, axis, dtype, device, seed=0,
@@ -291,21 +347,25 @@ def phase_b3(awfl_flux, weno):
     """B3 kernel vs plain on the card, f64 at 1e-12 and f32 at 2e-5 of
     each output's largest |value|: x at (6,400 rows, 65) and z at (8,320
     rows, 50 levels, stretched dz, per-level matrices, mask on) with 3
-    and 10 tracers, y at a small 3-D shape, one ragged shape, and z with a
-    dz and a matrix set of its own for every member. The f32
+    and 10 tracers, y at a small 3-D shape, one ragged shape, z with a
+    dz and a matrix set of its own for every member, and shapes that the
+    kernel's tiles do not divide, without tracers and on every second
+    member of a larger array (B3_CASES). The f32
     kernel is also held against the plain version in f64 on the same
     (rounded) inputs at 1e-3: float32 rounding through the limiter, which
     the comparison above must not see and this one must. Returns
     ({(dtype, case): max abs err}, {(dtype, "x" | "z" | "z member dz"):
-    (kernel ms, plain ms, bytes, flops)} at full width with 3 tracers, the
+    (kernel ms by graph replay, kernel ms by eager launches, plain ms,
+    bytes, flops)} at full width with 3 tracers, the
     largest relative distance of the f32 kernel from the f64 result)."""
     errs, timing, f32_off = {}, {}, 0.0
     for dtype in (torch.float64, torch.float32):
         tb = weno.weno_tables(5, dtype)
-        for case, (nens, ny, nz, nx, ntr, axis, member_dz) in B3_CASES:
+        for case, (nens, ny, nz, nx, ntr, axis, member_dz, step) in B3_CASES:
             prim, trac, pres, levels = b3_inputs(
                 nens, ny, nz, nx, ntr, axis, dtype, "cuda", seed=axis + ntr,
                 member_dz=member_dz)
+            prim, trac, pres = prim[:, ::step], trac[:, ::step], pres[::step]
             got = awfl_flux.flux_direction_cuda(prim, trac, pres, axis, tb,
                                                 levels)
             torch.cuda.synchronize()
@@ -332,6 +392,7 @@ def phase_b3(awfl_flux, weno):
             if case in ("x", "z", "z member dz"):
                 run = lambda fn: fn(prim, trac, pres, axis, tb, levels)
                 timing[(name_of(dtype), case)] = (
+                    graph_ms(lambda: run(awfl_flux.flux_direction_cuda), 400),
                     cuda_ms(lambda: run(awfl_flux.flux_direction_cuda), 100),
                     cuda_ms(lambda: run(awfl_flux.flux_direction_reference),
                             5),
@@ -452,10 +513,12 @@ def main():
     b3_count = (awfl_flux.flux_direction_cuda, "launches")
     cycle_count = (AwflDycore.timestep, "cycles")
 
-    # 2. build from pam_tpu_torch/csrc alone (one nvcc over csrc/*.cu)
+    # 2. build from pam_tpu_torch/csrc alone (one nvcc per source, side
+    #    by side; csrc/weno5.cuh is in both WENO kernels' keys)
     build = _cuda.build()
     _cuda.library()
-    print(f"phase 2 build: {build.seconds:.2f} s {build.path.name}; "
+    print(f"phase 2 build: {build.seconds:.2f} s "
+          f"{' '.join(p.name for p in build.paths.values())}; "
           f"{ptxas_summary(build.log)}", flush=True)
 
     # 3. x-WENO kernel vs plain on the card
@@ -465,10 +528,10 @@ def main():
     errs, timing = phase_kernel(weno, weno_x)
     print("phase 3 kernel vs plain: max abs err " +
           ", ".join(f"{d}{(r, n)} {e:.3e}" for (d, r, n), e in errs.items()) +
-          "; (32000,65) us/call kernel/plain (bound) " +
-          ", ".join(f"{d} {k * 1e3:.2f}/{p * 1e3:.2f} "
+          "; (32000,65) us/call kernel (by eager launches)/plain (bound) " +
+          ", ".join(f"{d} {k * 1e3:.2f} ({h * 1e3:.2f})/{p * 1e3:.2f} "
                     f"({b1_bounds[d][0] * 1e3:.2f} by {b1_bounds[d][1]})"
-                    for d, (k, p) in timing.items()), flush=True)
+                    for d, (k, h, p) in timing.items()), flush=True)
 
     # 4. Kessler golden trajectory on the card, f64, through the kernel
     weno_x.weno_edges_x_cuda.launches = 0
@@ -502,10 +565,10 @@ def main():
           "1e-12 f64 / 1e-5 f32 of the field's max) " +
           ", ".join(f"{d}{s} {e:.3e} ({n})"
                     for (d, s), (e, n) in b4_errs.items()) +
-          "; (50,65,128) us/call kernel/plain (bound) " +
-          ", ".join(f"{d} {k * 1e3:.2f}/{p * 1e3:.2f} "
+          "; (50,65,128) us/call kernel (by eager launches)/plain (bound) " +
+          ", ".join(f"{d} {k * 1e3:.2f} ({h * 1e3:.2f})/{p * 1e3:.2f} "
                     f"({b4_bounds[d][0] * 1e3:.2f} by {b4_bounds[d][1]})"
-                    for d, (k, p) in b4_timing.items()) +
+                    for d, (k, h, p) in b4_timing.items()) +
           f"; {b4_ops / n_b4:.0f} operations per point", flush=True)
 
     # 7. P3+SHOC golden trajectory on the card, f64, through both kernels
@@ -549,11 +612,12 @@ def main():
     print("phase 9 B3 kernel vs plain: max abs err " +
           ", ".join(f"{d} {c} {e:.3e}" for (d, c), e in b3_errs.items()) +
           f"; f32 kernel vs plain in f64, max rel err {f32_off:.3e}"
-          "; 65x1x50 nens 128 ntr 3 us/call kernel/plain (bound) " +
-          ", ".join(f"{d} {c} {k * 1e3:.2f}/{p * 1e3:.2f} "
+          "; 65x1x50 nens 128 ntr 3 us/call kernel (by eager launches)/plain "
+          "(bound) " +
+          ", ".join(f"{d} {c} {k * 1e3:.2f} ({h * 1e3:.2f})/{p * 1e3:.2f} "
                     f"({bound_ms(nb, fl, getattr(torch, d))[0] * 1e3:.2f} by "
                     f"{bound_ms(nb, fl, getattr(torch, d))[1]})"
-                    for (d, c), (k, p, nb, fl) in b3_timing.items()),
+                    for (d, c), (k, h, p, nb, fl) in b3_timing.items()),
           flush=True)
 
     # 10. AWFL+Kessler reference trajectory on the card, f64, 5 steps
@@ -597,15 +661,26 @@ def main():
 
     # the kernels' record: float32 times at the main path's shapes; no
     # single PyTorch call computes any of the three functions
-    k32, p32 = timing["float32"]
-    b32, bp32 = b4_timing["float32"]
+    k32, _, p32 = timing["float32"]
+    b32, _, bp32 = b4_timing["float32"]
     b1_bound = b1_bounds["float32"]
     b4_bound = b4_bounds["float32"]
     # B3: the z call, the slower half of the main path's launches, under
     # the contract's keys, and the x call beside it
-    z32, zp32, z_bytes, z_flops = b3_timing[("float32", "z")]
-    x32, xp32, x_bytes, x_flops = b3_timing[("float32", "x")]
+    z32, _, zp32, z_bytes, z_flops = b3_timing[("float32", "z")]
+    x32, _, xp32, x_bytes, x_flops = b3_timing[("float32", "x")]
     b3_bound = bound_ms(z_bytes, z_flops, torch.float32)
+    # the two WENO kernels beside the kernels they replaced
+    new_us = {"B1": [timing[d] for d in ("float32", "float64")]}
+    for c in ("x", "z", "z member dz"):
+        new_us[f"B3 {c}"] = [b3_timing[(d, c)] for d in ("float32",
+                                                         "float64")]
+    print("us per call f32 / f64, now by graph replay (by eager launches) "
+          "<- the previous kernel by eager launches: " + "; ".join(
+              f"{name} " + " / ".join(f"{t[0] * 1e3:.2f} ({t[1] * 1e3:.2f})"
+                                      for t in new_us[name])
+              + f" <- {old[0]:.2f} / {old[1]:.2f}"
+              for name, old in PREVIOUS_US.items()), flush=True)
     print(json.dumps({"kernels": [
         {"name": "weno_x", "route": "cuda",
          "source": "pam_tpu_torch/csrc/weno_x.cu",

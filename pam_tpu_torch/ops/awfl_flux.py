@@ -27,14 +27,15 @@ import dataclasses
 import numpy as np
 import torch
 
-from . import weno
-from .weno_x import ORD, _packed_tables
+from . import recon_matrices as rm, weno, weno5
 
 CS = 350.0  # frozen acoustic characteristic speed (ref: Dycore.h:335)
 AX_Y, AX_Z, AX_X = 2, 3, 4      # axes of (nvar, nens, ny, nz, nx)
-HS = (ORD + 1) // 2
-LEVEL_STRIDE = ORD * ORD + HS ** 3   # values per level in packed matrices
-N_ARGS = 27                     # length of the kernel's argument array
+ORD, HS = weno5.ORD, weno5.HS
+LEVEL_STRIDE = weno5.NMAT       # values per level in packed matrices
+N_ARGS = 28                     # length of the kernel's argument array
+MAX_TILE_FACES = 8              # csrc/awfl_flux.cu::MAX_TF
+TILE_FACES = 4                  # faces of a tile along y or z, at most
 # per direction: index of the normal momentum among (u, v, w), and the
 # kernel's direction code
 _MOM_Q = {AX_X: 0, AX_Y: 1, AX_Z: 2}
@@ -47,9 +48,9 @@ class LevelMatrices:
 
     s2c: (ord, ord, members, 1, nz+2, 1) and wrl: (hs, hs, hs, members, 1,
     nz+2, 1) tensors for the plain version (matrix dims leading, the level
-    axis at -2 of the dycore's layout). packed: the same matrices as one
-    (members, nz+2, 52) tensor for the kernel, s2c[c][s] then wrl[i][s][c]
-    per level."""
+    axis at -2 of the dycore's layout). packed: one (members, nz+2, 52)
+    tensor for the kernel, per level the bridge polynomial's matrix
+    ``weno5.bridge_matrix`` [c][s], then wrl[i][s][c]."""
     s2c: torch.Tensor
     wrl: torch.Tensor
     packed: torch.Tensor
@@ -64,9 +65,8 @@ class LevelMatrices:
         vs2c = to(np.moveaxis(s2c, (2, 3), (0, 1)))[:, :, :, None, :, None]
         vwrl = to(np.moveaxis(wrl, (2, 3, 4), (0, 1, 2)))[:, :, :, :, None, :,
                                                           None]
-        members, nlev = s2c.shape[:2]
-        packed = to(np.concatenate([s2c.reshape(members, nlev, -1),
-                                    wrl.reshape(members, nlev, -1)], axis=2))
+        idl, _ = rm.weno_ideal_weights(ORD)
+        packed = to(weno5.pack_matrices(s2c, wrl, idl))
         return LevelMatrices(vs2c, vwrl, packed)
 
     def to(self, dtype) -> "LevelMatrices":
@@ -136,10 +136,24 @@ def flux_direction_reference(prim, trac, pres, axis, tables, levels=None):
     return torch.cat([ru[None], flux_q[:4]]), flux_q[4:]
 
 
-def flux_direction_cuda(prim, trac, pres, axis, tables, levels=None):
+def tile_faces(nfaces: int) -> int:
+    """Faces of a block's tile along y or z for ``csrc/awfl_flux.cu``. A
+    block of tf faces is 32 (tf + 1) threads and evaluates the acoustic
+    limiters of tf + 1 cells, so a large tile wastes fewer evaluations
+    and a small one leaves the card more blocks to place: at 65x1x50 on
+    an H100, tiles of 3 and 4 faces were the fastest of 1-8 in float32
+    and float64 (PERF.md). The faces are spread evenly over the fewest
+    tiles of at most TILE_FACES."""
+    tiles = -(-nfaces // TILE_FACES)
+    return -(-nfaces // tiles)
+
+
+def flux_direction_cuda(prim, trac, pres, axis, tables, levels=None,
+                        faces_per_tile=None):
     """Launch ``csrc/awfl_flux.cu`` on CUDA tensors (float32 or float64;
     any strides); arguments and results as :func:`flux_direction_reference`.
-    ``levels`` may hold one matrix set or one per member."""
+    ``levels`` may hold one matrix set or one per member.
+    ``faces_per_tile`` overrides :func:`tile_faces` (for measuring it)."""
     _check_direction(prim, trac, pres, axis)
     for name, a in (("prim", prim), ("trac", trac), ("pres", pres)):
         if not a.is_cuda:
@@ -162,12 +176,12 @@ def flux_direction_cuda(prim, trac, pres, axis, tables, levels=None):
         if (mats.ndim != 3 or mats.shape[0] not in (1, prim.shape[1])
                 or mats.shape[1:] != (nlev, LEVEL_STRIDE)
                 or mats.dtype != prim.dtype or mats.device != prim.device
-                or not mats.is_contiguous()):
+                or not mats.is_contiguous() or mats.data_ptr() % 16):
             raise ValueError(
                 f"flux_direction_cuda: packed level matrices are "
                 f"{tuple(mats.shape)} {mats.dtype} on {mats.device}; need a "
-                f"contiguous (1 or {prim.shape[1]}, {nlev}, {LEVEL_STRIDE}) "
-                f"{prim.dtype} tensor on {prim.device}")
+                f"contiguous, 16-byte aligned (1 or {prim.shape[1]}, {nlev}, "
+                f"{LEVEL_STRIDE}) {prim.dtype} tensor on {prim.device}")
         if mats.shape[0] > 1:
             member_stride = nlev * LEVEL_STRIDE
     from .. import _cuda
@@ -175,6 +189,8 @@ def flux_direction_cuda(prim, trac, pres, axis, tables, levels=None):
     ntr = trac.shape[0]
     oshape = list(prim.shape[1:])
     oshape[axis - 1] -= ORD
+    tf = tile_faces(oshape[axis - 1]) if faces_per_tile is None \
+        else int(faces_per_tile)
     sflux = prim.new_empty([5] + oshape)
     tflux = prim.new_empty([ntr] + oshape)
     args = np.array(
@@ -182,11 +198,12 @@ def flux_direction_cuda(prim, trac, pres, axis, tables, levels=None):
          sflux.data_ptr(), tflux.data_ptr(),
          0 if mats is None else mats.data_ptr(), member_stride,
          ntr, *oshape, _MOM_Q[axis],
-         *prim.stride(), *trac.stride(), *pres.stride()], dtype=np.int64)
+         *prim.stride(), *trac.stride(), *pres.stride(), tf],
+        dtype=np.int64)
     if args.shape != (N_ARGS,):
         raise RuntimeError(f"awfl_flux: {args.size} kernel arguments, not "
                            f"{N_ARGS}")
-    packed = _packed_tables(tables)
+    packed = weno5.prepared_tables(tables)
     fn = lib.pam_awfl_flux_f32 if prim.dtype == torch.float32 \
         else lib.pam_awfl_flux_f64
     with torch.cuda.device(prim.device):

@@ -15,9 +15,11 @@ import numpy as np
 import torch
 
 from ..parallel import comm
-from . import weno
+from . import weno, weno5
 
-ORD = 5
+ORD = weno5.ORD
+TILE = 4608        # values of a block's shared-memory tile (csrc/weno_x.cu)
+MAX_ROWS = 16      # most rows a block takes
 
 
 def weno_edges_x_reference(field: torch.Tensor, tables):
@@ -43,20 +45,29 @@ def weno_x_work(rows, nx, itemsize, tables):
             rows * nx * (weno.limiter_flops(tables) + 2 * per_edge))
 
 
-def _packed_tables(tables) -> np.ndarray:
-    """The tables as the kernel's 101 float64 values (csrc/weno_x.cu)."""
-    s2c, wrl, tvh, tvl, c2g, idl, sigma = tables
-    if s2c.shape != (ORD, ORD):
-        raise ValueError(f"the CUDA WENO kernel is order {ORD}; got tables "
-                         f"of order {s2c.shape[-1]}")
-    parts = [s2c, wrl, tvh, tvl, c2g, idl, np.array([sigma], s2c.dtype)]
-    return np.ascontiguousarray(np.concatenate(
-        [np.asarray(p).ravel() for p in parts]).astype(np.float64))
+def tiling(rows: int, nx: int) -> tuple[int, int]:
+    """(rows per block, cells per segment) for ``csrc/weno_x.cu``. A block
+    copies its rows, each with a 2-cell halo on both sides, into a tile of
+    TILE values and walks their cells 32 to a warp in memory order, so the
+    last warp of a block is full only where rows * nx is a multiple of 32:
+    among 1 .. MAX_ROWS rows that fit, take the count that wastes the
+    smallest share of its last warp (the larger count on a tie). A row too
+    wide for the tile is cut into segments, one row per block."""
+    fit = TILE // (nx + 4)
+    if fit < 1:
+        return 1, TILE - 4
+    best, best_use = 1, 0.0
+    for rb in range(1, min(fit, MAX_ROWS, max(rows, 1)) + 1):
+        use = rb * nx / (32 * -(-rb * nx // 32))
+        if use >= best_use:
+            best, best_use = rb, use
+    return best, nx
 
 
-def weno_edges_x_cuda(field: torch.Tensor, tables):
+def weno_edges_x_cuda(field: torch.Tensor, tables, rows_per_block=None):
     """Launch ``csrc/weno_x.cu`` on a contiguous (rows, nx) float32/float64
-    CUDA tensor; returns (left, right), each (rows, nx)."""
+    CUDA tensor; returns (left, right), each (rows, nx). ``rows_per_block``
+    overrides :func:`tiling`'s choice (for measuring it)."""
     if not field.is_cuda:
         raise ValueError(f"weno_edges_x_cuda needs a CUDA tensor, got "
                          f"{field.device}")
@@ -75,7 +86,10 @@ def weno_edges_x_cuda(field: torch.Tensor, tables):
         raise TypeError("WENO tables and field differ in dtype")
     from .. import _cuda
     lib = _cuda.library()
-    packed = _packed_tables(tables)
+    packed = weno5.prepared_tables(tables)
+    rb, seg = tiling(rows, nx)
+    if rows_per_block is not None:
+        rb = int(rows_per_block)
     left = torch.empty_like(field)
     right = torch.empty_like(field)
     fn = lib.pam_weno_x_f32 if field.dtype == torch.float32 \
@@ -83,7 +97,7 @@ def weno_edges_x_cuda(field: torch.Tensor, tables):
     with torch.cuda.device(field.device):
         stream = torch.cuda.current_stream(field.device).cuda_stream
         rc = fn(field.data_ptr(), left.data_ptr(), right.data_ptr(), rows, nx,
-                packed.ctypes.data, stream)
+                rb, seg, packed.ctypes.data, stream)
     if rc != 0:
         raise RuntimeError(f"weno_x kernel launch failed: CUDA error {rc}")
     weno_edges_x_cuda.launches += 1

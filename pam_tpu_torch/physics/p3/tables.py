@@ -4,10 +4,9 @@ and the multilinear interpolation (port of pam_tpu/physics/p3/tables.py;
 ref micro_p3.F90 p3_init_a :134-206, p3_init_b :236-361,
 access_lookup_table* :1508-1615, find_lookupTable_indices_* :1620-1770).
 
-The data file is the one in ``pam_tpu/physics/p3/tables/``, read in
-place by its path from the root of the repository (a file read, not an
-import of ``pam_tpu``). The interpolation keeps ``pam_tpu``'s
-hat-weight contractions, here ``torch.einsum`` products: every
+The data file is the port's own copy, ``tables/p3_lookup_table_1.dat-v4``
+beside this module (byte for byte ``pam_tpu``'s). The interpolation keeps
+``pam_tpu``'s hat-weight contractions, here ``torch.einsum`` products: every
 fractional index x lies between its floor and floor + 1, so linear
 interpolation along an axis of n entries is exactly the contraction
 with the weights max(0, 1 - |k - x|). The products run in full float32
@@ -28,8 +27,8 @@ from .constants import (ISIZE, DENSIZE, RIMSIZE, RCOLLSIZE, ICE_TABLE_SIZE,
                         COLLECT_TABLE_SIZE, MU_R_CONSTANT, CONST,
                         LOOKUP_TABLE_1A_DUM1_C)
 
-TABLE_FILE = (Path(__file__).resolve().parents[3] / "pam_tpu" / "physics"
-              / "p3" / "tables" / "p3_lookup_table_1.dat-v4")
+TABLE_FILE = (Path(__file__).resolve().parent / "tables"
+              / "p3_lookup_table_1.dat-v4")
 
 
 @functools.cache

@@ -22,7 +22,7 @@ from pam_tpu_torch.convert import state_from_numpy, state_to_numpy
 from pam_tpu_torch.core.coupler import Coupler
 from pam_tpu_torch.dycore import awfl_init
 from pam_tpu_torch.dycore.awfl import AwflDycore
-from pam_tpu_torch.ops import awfl_flux, recon_matrices as rm, weno
+from pam_tpu_torch.ops import awfl_flux, recon_matrices as rm, weno, weno5
 
 torch.set_num_threads(1)
 
@@ -31,9 +31,9 @@ sys.path.insert(0, os.path.dirname(HERE))
 from chip_smoke import b3_inputs  # noqa: E402  (seeded flux inputs)
 GOLDEN = os.path.join(HERE, "golden")
 AX_Y, AX_Z, AX_X = awfl_flux.AX_Y, awfl_flux.AX_Z, awfl_flux.AX_X
-# kernel vs plain, relative to each output's largest |value|: the same
-# operations in the same order without multiply-add contraction; PyTorch
-# divides by a Python scalar as a product with its reciprocal
+# kernel vs plain, relative to each output's largest |value|: the kernel
+# evaluates the limiter of csrc/weno5.cuh (merged constants, one
+# reciprocal per normalisation, multiply-adds), so it agrees to rounding
 KERNEL_TOL = {torch.float64: 1e-12, torch.float32: 2e-5}
 
 
@@ -208,10 +208,13 @@ def test_flux_reference_matches_pallas_kernel():
     # the TPU layout: stencil axis last, everything else flattened to rows
     rows = lambda a: np.ascontiguousarray(
         np.swapaxes(a.numpy(), -1, -2)).reshape(a.shape[0], -1, nz + 6)
-    packed = levels.packed[0].numpy()     # (nz+2, 52), one set for all
+    # one set for all members: (nz+2, 25) s2c[c][s] and (nz+2, 27) wrl
+    s2c = levels.s2c[:, :, 0, 0, :, 0].permute(2, 0, 1).reshape(nz + 2, 25)
+    wrl = levels.wrl[:, :, :, 0, 0, :, 0].permute(3, 0, 1, 2).reshape(
+        nz + 2, 27)
+    s2c, wrl = s2c.numpy(), wrl.numpy()
     nf = nz + 1
-    mats = (packed[:nf, :25].T, packed[1:nf + 1, :25].T,
-            packed[:nf, 25:].T, packed[1:nf + 1, 25:].T)
+    mats = (s2c[:nf].T, s2c[1:nf + 1].T, wrl[:nf].T, wrl[1:nf + 1].T)
     with pltpu.force_tpu_interpret_mode():
         sref, tref = awfl_pallas.flux_direction_fused(
             jnp.asarray(rows(prim)), jnp.asarray(rows(trac)),
@@ -280,33 +283,112 @@ def test_member_varying_dz_takes_the_plain_version():
 
 
 def test_kernel_layout_numbers_match_source():
-    """The argument-array length, the table length and the per-level
-    stride of ops/awfl_flux.py are those of csrc/awfl_flux.cu."""
-    src = open(os.path.join(os.path.dirname(awfl_flux.__file__), "..", "csrc",
-                            "awfl_flux.cu")).read()
-    const = lambda name: "(" + re.search(
-        rf"constexpr int {name} =\s*([^;]+);", src).group(1) + ")"
+    """The argument-array length, the table length, the per-level stride
+    and the largest tile of ops/awfl_flux.py are those of
+    csrc/awfl_flux.cu and csrc/weno5.cuh."""
+    csrc = os.path.join(os.path.dirname(awfl_flux.__file__), "..", "csrc")
+    src = open(os.path.join(csrc, "awfl_flux.cu")).read()
+    hdr = open(os.path.join(csrc, "weno5.cuh")).read()
+    const = lambda text, name: "(" + re.search(
+        rf"constexpr int {name} =\s*([^;]+);", text).group(1) + ")"
     env = {"ORD": 5, "HS": 3}
-    assert eval(const("N_ARGS"), env) == awfl_flux.N_ARGS
-    assert eval(const("LEVEL_STRIDE"), env) == awfl_flux.LEVEL_STRIDE == 52
+    assert eval(const(src, "N_ARGS"), env) == awfl_flux.N_ARGS
+    assert eval(const(src, "MAX_TF"), env) == awfl_flux.MAX_TILE_FACES
+    env["NMAT"] = eval(const(hdr, "NMAT"), env)
+    assert env["NMAT"] == awfl_flux.LEVEL_STRIDE == weno5.NMAT == 52
     tb = weno.weno_tables(5, torch.float32)
-    assert eval(const("NTAB"), env) == awfl_flux._packed_tables(tb).size
-    assert "N_ARGS * 1000000 + NTAB * 1000 + LEVEL_STRIDE" in src
+    assert eval(const(hdr, "NTAB"), env) == weno5.prepare_tables(tb).size
+    assert "N_ARGS * 1000000 + weno5::NTAB * 1000 + NMAT" in src
     # the struct the argument array fills: 6 pointers, the matrices'
-    # member stride, ntr, 4 extents, dir, 5 + 5 + 4 strides
+    # member stride, ntr, 4 extents, dir, 5 + 5 + 4 strides, the tile
     fields = re.search(r"struct FluxArgs \{(.*?)\};", src, re.S).group(1)
     assert len(re.findall(r"void\*", fields)) == 6
-    assert len(re.findall(r"long long \w+", fields)) == 7
-    assert 6 + 1 + 1 + 4 + 1 + 5 + 5 + 4 == awfl_flux.N_ARGS
-    # packed level matrices: s2c row-major, then wrl
+    assert len(re.findall(r"long long \w+", fields)) == 8
+    assert 6 + 1 + 1 + 4 + 1 + 5 + 5 + 4 + 1 == awfl_flux.N_ARGS
+    # packed level matrices: the bridge matrix row-major, then wrl
     s2c, wrl = rm.vertical_recon_matrices(_stretched(4), 5)
     lv = awfl_flux.LevelMatrices.build(s2c[None], wrl[None], torch.float64,
                                        "cpu")
     assert lv.packed.shape == (1, 6, 52)
-    assert float(lv.packed[0, 2, 1 * 5 + 3]) == s2c[2, 1, 3]
+    idl, _ = rm.weno_ideal_weights(5)
+    bridge = weno5.bridge_matrix(s2c, wrl, idl)
+    assert float(lv.packed[0, 2, 1 * 5 + 3]) == bridge[2, 1, 3]
+    assert float(lv.packed[0, 2, 4 * 5 + 0]) == s2c[2, 4, 0] / idl[3]
     assert float(lv.packed[0, 4, 25 + (2 * 3 + 1) * 3 + 0]) == wrl[4, 2, 1, 0]
     assert float(lv.s2c[1, 3, 0, 0, 2, 0]) == s2c[2, 1, 3]
     assert float(lv.wrl[2, 1, 0, 0, 0, 4, 0]) == wrl[4, 2, 1, 0]
+
+
+@pytest.mark.parametrize("nfaces", [1, 3, 8, 9, 13, 19, 51, 66, 200])
+def test_tile_faces_spread_evenly(nfaces):
+    """ops/awfl_flux.py::tile_faces: the fewest tiles of at most
+    TILE_FACES faces (no more than the kernel's MAX_TF), the faces spread
+    evenly over them."""
+    tf = awfl_flux.tile_faces(nfaces)
+    assert 1 <= tf <= awfl_flux.TILE_FACES <= awfl_flux.MAX_TILE_FACES
+    tiles = -(-nfaces // tf)
+    assert tiles == -(-nfaces // awfl_flux.TILE_FACES)
+    assert tf == -(-nfaces // tiles)
+
+
+@pytest.mark.parametrize("axis,ntr", [(AX_X, 0), (AX_Z, 3), (AX_Y, 2)])
+def test_kernel_order_of_operations_matches_flux_reference(axis, ntr):
+    """csrc/awfl_flux.cu's arithmetic in numpy, from ops/weno5.py's
+    transcription of the shared limiter: each cell's limiters of rho*u_n
+    and p once with both edges taken from them, the characteristic split,
+    the wall mask, then one upwind limiter per advected field with the
+    upwind cell's level matrices; against flux_direction_reference at
+    1e-13 of each output's largest value (float64)."""
+    prim, trac, pres, levels = b3_inputs(2, 3, 5, 7, ntr, axis,
+                                         torch.float64, "cpu", seed=3 + axis)
+    tb = weno.weno_tables(5, torch.float64)
+    sref, tref = awfl_flux.flux_direction_reference(prim, trac, pres, axis,
+                                                    tb, levels)
+    p = weno5.prepare_tables(tb)
+    ax = axis - 1                        # axis of a (nens, ny, nz, nx) field
+    ncell = prim.shape[axis] - 4         # cells 0 .. nf
+    nf = ncell - 1
+
+    def stencil(f):                      # five views over cells 0 .. nf
+        f = np.moveaxis(f.numpy(), ax, -1)
+        return [f[..., s:s + ncell] for s in range(5)]
+
+    mat = None
+    if levels is not None:               # (52, nlev) against a trailing axis
+        mat = np.moveaxis(levels.packed[0].numpy(), -1, 0)[:, None, None,
+                                                            None]
+    ru_c = weno5.cell_limiter(
+        stencil(prim[0] * prim[1 + awfl_flux._MOM_Q[axis]]), p, mat)
+    pp_c = weno5.cell_limiter(stencil(pres), p, mat)
+    ru_left, ru_right = weno5.edges(ru_c, p)
+    pp_left, pp_right = weno5.edges(pp_c, p)
+    ru_l, ru_r = ru_right[..., :nf].copy(), ru_left[..., 1:].copy()
+    pp_l, pp_r = pp_right[..., :nf], pp_left[..., 1:]
+    wall = np.zeros(nf, bool)
+    if axis == AX_Z:
+        wall[[0, -1]] = True
+        ru_l[..., wall] = 0.0
+        ru_r[..., wall] = 0.0
+    w1 = 0.5 * (pp_r - awfl_flux.CS * ru_r)
+    w2 = 0.5 * (pp_l + awfl_flux.CS * ru_l)
+    pp = w1 + w2
+    ru = np.where(wall, 0.0, (w2 - w1) * (1.0 / awfl_flux.CS))
+    upw = ru > 0
+    got = [ru]
+    for q, f in enumerate(list(prim[1:]) + list(trac)):
+        sten = stencil(f)
+        left_cell = [v[..., :nf] for v in sten]
+        right_cell = [v[..., 1:] for v in sten]
+        u = [np.where(upw, a, b) for a, b in zip(left_cell, right_cell)]
+        m = None if mat is None else np.where(upw, mat[..., :nf],
+                                              mat[..., 1:])
+        val = weno5.edge(weno5.cell_limiter(u, p, m), p, upw)
+        got.append(ru * val + (pp if q == awfl_flux._MOM_Q[axis] else 0.0))
+    ref = [np.moveaxis(r.numpy(), ax, -1) for r in list(sref) + list(tref)]
+    assert len(ref) == len(got) == 5 + ntr
+    for v, (r, g) in enumerate(zip(ref, got)):
+        assert _rel(r, g) < 1e-13, v
+    assert 0.1 < upw.mean() < 0.9
 
 
 def test_flux_work_counts():
@@ -321,6 +403,24 @@ def test_flux_work_counts():
     nbytes, flops = weno_x.weno_x_work(32000, 65, 4, tb)
     assert nbytes == 3 * 32000 * 65 * 4
     assert flops == 32000 * 65 * (weno.limiter_flops(tb) + 2 * 31)
+
+
+@pytest.mark.parametrize("axis,shape,sets,mbytes,gflop", [
+    (AX_X, (5, 128, 1, 50, 71), 0, 29.9, 1.162),
+    (AX_Z, (5, 128, 1, 56, 65), 1, 30.4, 1.167)], ids=["x", "z"])
+def test_flux_work_at_the_main_path_shapes(axis, shape, sets, mbytes, gflop):
+    """The yardstick stays the plain version's count (8 + ntr evaluations
+    of 247 operations per face) whatever the kernel shares: at 65x1x50,
+    nens 128, 3 tracers, float32, x is 29.9 MB and 1.162 Gflop, z (with
+    its one set of level matrices) 30.4 MB and 1.167 Gflop."""
+    tb = weno.weno_tables(5, torch.float32)
+    assert awfl_flux.weno_flops(tb) == 247
+    nbytes, flops = awfl_flux.flux_work(shape, 3, axis, 4, tb,
+                                        matrix_sets=sets)
+    assert round(nbytes / 1e6, 1) == mbytes
+    assert round(flops / 1e9, 3) == gflop
+    faces = 128 * 50 * 66 if axis == AX_X else 128 * 51 * 65
+    assert flops == faces * (11 * 247 + 6 + 13 + 14)
 
 
 # ------------------------------------------------- the dycore's pieces
@@ -742,9 +842,12 @@ def test_unknown_dycore_is_refused():
 @pytest.mark.parametrize("case", [
     (128, 1, 50, 65, 3, AX_X), (128, 1, 50, 65, 3, AX_Z),
     (4, 9, 11, 13, 10, AX_Y), (3, 5, 7, 37, 0, AX_Z),
-    (1, 1, 3, 129, 2, AX_X), (5, 3, 9, 37, 3, AX_Z, True)],
+    (1, 1, 3, 129, 2, AX_X), (5, 3, 9, 37, 3, AX_Z, True),
+    (3, 2, 5, 300, 0, AX_X), (2, 3, 12, 37, 10, AX_Z), (2, 18, 4, 33, 3, AX_Y),
+    (128, 1, 50, 65, 10, AX_Z, True)],
     ids=["x-full", "z-full", "y-3d", "z-ragged-notracer", "x-ragged",
-         "z-member-dz"])
+         "z-member-dz", "x-two-blocks-a-row-notracer", "z-13-faces",
+         "y-19-faces", "z-full-member-dz-10-tracers"])
 def test_cuda_kernel_matches_plain_version(case, dtype):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
@@ -764,3 +867,26 @@ def test_cuda_kernel_matches_plain_version(case, dtype):
         for v in range(ref.shape[0]):
             assert _rel(ref[v].cpu().numpy(), got[v].cpu().numpy()) \
                 < KERNEL_TOL[dtype], (name, v)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("axis", [AX_X, AX_Z], ids=["x", "z"])
+def test_cuda_kernel_on_every_second_member_and_every_tile(axis):
+    """A member stride that is not the array's own (every second member
+    of a larger array), and every tile size along z: the same result."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    prim, trac, pres, levels = b3_inputs(6, 2, 9, 21, 3, axis, torch.float64,
+                                         "cuda", seed=2)
+    prim, trac, pres = prim[:, ::2], trac[:, ::2], pres[::2]
+    assert not prim.is_contiguous()
+    tb = weno.weno_tables(5, torch.float64)
+    ref = awfl_flux.flux_direction_reference(prim, trac, pres, axis, tb,
+                                             levels)
+    for tf in (None, 1, 3, awfl_flux.MAX_TILE_FACES):
+        got = awfl_flux.flux_direction_cuda(prim, trac, pres, axis, tb,
+                                            levels, faces_per_tile=tf)
+        torch.cuda.synchronize()
+        for r, g in zip(torch.cat(ref), torch.cat(got)):
+            assert _rel(r.cpu().numpy(), g.cpu().numpy()) \
+                < KERNEL_TOL[torch.float64], tf

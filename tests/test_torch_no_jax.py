@@ -1,9 +1,9 @@
 """pam_tpu_torch runs without JAX and without pam_tpu: in a fresh
 interpreter where importing either fails, the package imports and one
 full crm_phys_step runs at a tiny size, with Kessler and with P3+SHOC
-(whose lookup table is read from pam_tpu's directory as a file, not
-imported) under SPAM, and with Kessler under the AWFL dycore; the AWFL
-thermal bubble takes a step through AwflDycore alone."""
+(whose lookup table is the port's own copy) under SPAM, and with Kessler
+under the AWFL dycore; the AWFL thermal bubble takes a step through
+AwflDycore alone."""
 
 import os
 import subprocess

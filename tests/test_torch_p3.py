@@ -3,7 +3,8 @@ the same numpy-seeded inputs, float64 on the CPU, and kernel B4
 (csrc/p3_part2.cu) against its plain version on the card.
 
 Tolerances, relative to each field's largest |value|:
-* tables: exactly equal (the same file and the same numpy code);
+* tables: exactly equal (the port's copy of the file has pam_tpu's
+  sha256, and the same numpy code reads it);
 * the pointwise core of part 2 (``_part2_core``): 1e-12 against the JAX
   XLA path and against the Pallas kernel in interpret mode (both compute
   the same expressions; they differ only in rounding);
@@ -61,6 +62,20 @@ def test_tables_equal_pam_tpu():
         np.testing.assert_array_equal(a, b)
     for a, b in zip(jtbl.build_rain_tables(), ttbl.build_rain_tables()):
         np.testing.assert_array_equal(a, b)
+
+
+def test_lookup_table_file_is_the_ports_own_copy():
+    """The port reads no file of pam_tpu: TABLE_FILE lies inside
+    pam_tpu_torch/ and is byte for byte pam_tpu's table."""
+    import hashlib
+    import pam_tpu_torch
+    from pam_tpu.physics.p3 import tables as jtbl
+    pkg = os.path.dirname(os.path.abspath(pam_tpu_torch.__file__))
+    assert os.path.commonpath([pkg, str(ttbl.TABLE_FILE)]) == pkg
+    assert os.path.realpath(ttbl.TABLE_FILE).startswith(
+        os.path.realpath(pkg) + os.sep)
+    sha = lambda f: hashlib.sha256(open(f, "rb").read()).hexdigest()
+    assert sha(ttbl.TABLE_FILE) == sha(jtbl._TABLE_FILE)
 
 
 def test_index_walks_and_interpolation_match_jax():
