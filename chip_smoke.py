@@ -13,7 +13,8 @@ Each phase prints one line. The line before the last is the kernels'
 JSON record (per kernel: launches on its main path, error against the
 plain version, ms per call of the kernel and of the plain version in
 float32, and the least time the card could take for the same bytes and
-operations; for the AWFL flux those of the z call, the slower half of its
+operations; for P3 part 2 the plain version is its table stage and core
+together; for the AWFL flux those of the z call, the slower half of its
 launches, with the x call's beside them), the line before it the two WENO
 kernels' times beside those of the kernels they replaced, the last line
 {"ok": true, "device": {...}}. A kernel's time is device time: its
@@ -59,11 +60,17 @@ P3_GOLDEN_TOL = {"wvel": 1e-7, "cloud_water": 5e-9, "rain": 1.1e-5,
 WENO_CALLS_PER_STEP = 6
 # AWFL flux calls per sub-cycle in 2-D: 3 SSPRK3 stages, x and z
 FLUX_CALLS_PER_CYCLE = 6
-# the kernels that csrc/weno_x.cu and csrc/awfl_flux.cu held before they
-# were rebuilt on csrc/weno5.cuh: us per call, (f32, f64), by eager
-# launches on an NVIDIA H100 80GB HBM3 at 700.00 W (PERF.md section 6)
+# what the kernels replaced: the kernels that csrc/weno_x.cu and
+# csrc/awfl_flux.cu held before they were rebuilt on csrc/weno5.cuh, and
+# P3 part 2 before csrc/p3_part2.cu ran its table stage: us per call,
+# (f32, f64), by eager launches on an NVIDIA H100 80GB HBM3 at 700.00 W
+# (PERF.md section 6)
 PREVIOUS_US = {"B1": (53.08, 89.71), "B3 x": (112.57, 230.48),
-               "B3 z": (120.90, 238.50), "B3 z member dz": (121.56, 243.00)}
+               "B3 z": (120.90, 238.50), "B3 z member dz": (121.56, 243.00),
+               # P3 part 2 as two stages, the table stage's dense
+               # contractions in PyTorch and then a kernel for the core
+               # (kernel_times.py --compare, same card)
+               "B4 part 2": (11823.12, 16009.72)}
 # published peaks of one H100 SXM (NVIDIA's data sheet): device memory
 # rate, float32 outside the tensor cores, float64 at half that rate
 PEAK_BYTES_S = 3.35e12
@@ -124,7 +131,9 @@ def field(rows, nx, dtype, seed):
 
 
 def ptxas_summary(log):
-    """Registers and spills per kernel instantiation from nvcc -Xptxas -v."""
+    """Registers and spills per kernel instantiation from nvcc -Xptxas -v
+    (a line that reports no spill is left out: the device functions that
+    csrc/p3_part2.cu calls print one each)."""
     out, name = [], "?"
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
@@ -136,7 +145,8 @@ def ptxas_summary(log):
             if kernel == "awfl_flux":   # <T, per-level matrices, along x>
                 name += ("/levels" if tail[2:].startswith("Lb1E") else
                          "/uniform") + ("/x" if "ELb1EE" in tail else "/yz")
-        elif "spill" in ln or "registers" in ln:
+        elif "registers" in ln or ("spill" in ln
+                                   and " 0 bytes spill stores" not in ln):
             out.append(f"{name}: {ln.split(':', 1)[-1].strip()}")
     return " | ".join(out)
 
@@ -227,56 +237,83 @@ def b4_beyond(ref, got, tol):
     return out
 
 
-def phase_b4(p3_part2):
-    """B4 kernel vs plain at the main path's shape and a ragged size, f64
-    and f32; returns ({(dtype, shape): (max abs err kernel vs plain,
-    points beyond the tolerance)}, {dtype: (kernel ms by graph replay,
-    kernel ms by eager launches, plain ms)} at (50, 65, 128), the
-    operations of one call there). f64: every field within 1e-12 of its largest |value|.
-    f32: both the kernel and the plain version are held against the plain
-    version in f64 on the same (rounded) inputs, at 1e-5; where a limiter
-    drains a species to rounding noise, the final q < QSMALL clip goes
-    either way in f32 and the number/rime fields differ there, so the
-    kernel may have no more such points than 2x the plain version's
-    (+10)."""
-    errs, timing, ops = {}, {}, 0
-    for dtype in (torch.float64, torch.float32):
-        for shape in ((50, 65, 128), (1000003,)):
-            args64 = p3_part2.sample_inputs(shape, torch.float64, "cuda",
-                                            seed=11)
-            args = p3_part2.cast_inputs(args64, dtype)
-            got = p3_part2.outputs(*p3_part2.p3_part2_cuda(*args))
-            torch.cuda.synchronize()
-            ref = p3_part2.outputs(*p3_part2.p3_part2_reference(*args))
-            vs_plain = b4_beyond(ref, got, B4_TOL[dtype])
-            if dtype == torch.float64:
-                bad = {k: v for k, v in vs_plain.items() if v[0]}
-                check(not bad, f"B4 kernel vs plain f64 {shape}: {bad}")
-            else:
-                truth = p3_part2.outputs(*p3_part2.p3_part2_reference(
-                    *p3_part2.cast_inputs(args, torch.float64)))
-                truth = {k: v.to(dtype) for k, v in truth.items()}
-                k_bad = b4_beyond(truth, got, B4_TOL[dtype])
-                p_bad = b4_beyond(truth, ref, B4_TOL[dtype])
-                for k in truth:
-                    check(k_bad[k][0] <= 2 * p_bad[k][0] + 10,
-                          f"B4 f32 {shape} {k}: kernel {k_bad[k][0]} vs "
-                          f"plain {p_bad[k][0]} points off the f64 result")
-                print(f"  B4 f32 {shape} points beyond 1e-5 of f64 "
-                      "(kernel/plain): " + ", ".join(
-                          f"{k} {k_bad[k][0]}/{p_bad[k][0]}" for k in truth
-                          if k_bad[k][0] or p_bad[k][0]), flush=True)
-            errs[(name_of(dtype), shape)] = (
-                max(v[1] for v in vs_plain.values()),
-                sum(v[0] for v in vs_plain.values()))
-            if shape == (50, 65, 128):
-                timing[name_of(dtype)] = (
-                    graph_ms(lambda: p3_part2.p3_part2_cuda(*args), 100),
-                    cuda_ms(lambda: p3_part2.p3_part2_cuda(*args), 50),
-                    cuda_ms(lambda: p3_part2.p3_part2_reference(*args), 10))
-                ops = plain_ops(lambda: p3_part2.p3_part2_reference(*args))
-            del args, args64, got, ref
-    return errs, timing, ops
+def phase_b4(p3_part2, p3main):
+    """B4 kernel (all of P3 part 2 in one launch) vs its plain version
+    (the table stage with its hat-weight contractions, then the pointwise
+    core) at the main path's shape and a ragged size, f64 and f32, with
+    cloud, rain and ice each at half of the points and at 2% of them;
+    returns ({(dtype, shape, present): (max abs err kernel vs plain,
+    points beyond the tolerance)}, {(dtype, present): (kernel ms by graph
+    replay, kernel ms by eager launches, plain ms)} at (50, 65, 128), the
+    operations of one call there with the lookups as gathers, the arrays
+    of that shape one f32 call allocates at its peak). f64: every field
+    within 1e-12 of its largest |value|. f32: both the kernel and the
+    plain version are held against the plain version in f64 on the same
+    (rounded) inputs, at 1e-5; where a limiter drains a species to
+    rounding noise, the final q < QSMALL clip goes either way in f32 and
+    the number/rime fields differ there, so the kernel may have no more
+    such points than 2x the plain version's (+10)."""
+    errs, timing, ops, peak_arrays = {}, {}, 0, 0.0
+    cases = [(dtype, shape, present)
+             for dtype in (torch.float64, torch.float32)
+             for shape in ((50, 65, 128), (1000003,))
+             for present in (0.5, 0.02)]
+    for dtype, shape, present in cases:
+        args64 = p3_part2.sample_inputs(shape, torch.float64, "cuda",
+                                        seed=11, present=present)
+        args = p3_part2.cast_inputs(args64, dtype)
+        got = p3_part2.outputs(*p3_part2.p3_part2_cuda(*args))
+        torch.cuda.synchronize()
+        ref = p3_part2.outputs(*p3_part2.p3_part2_reference(*args))
+        tag = f"{name_of(dtype)} {shape} present {present}"
+        vs_plain = b4_beyond(ref, got, B4_TOL[dtype])
+        if dtype == torch.float64:
+            bad = {k: v for k, v in vs_plain.items() if v[0]}
+            check(not bad, f"B4 kernel vs plain {tag}: {bad}")
+        else:
+            truth = p3_part2.outputs(*p3_part2.p3_part2_reference(
+                *p3_part2.cast_inputs(args, torch.float64)))
+            truth = {k: v.to(dtype) for k, v in truth.items()}
+            k_bad = b4_beyond(truth, got, B4_TOL[dtype])
+            p_bad = b4_beyond(truth, ref, B4_TOL[dtype])
+            for k in truth:
+                check(k_bad[k][0] <= 2 * p_bad[k][0] + 10,
+                      f"B4 {tag} {k}: kernel {k_bad[k][0]} vs "
+                      f"plain {p_bad[k][0]} points off the f64 result")
+            print(f"  B4 {tag} points beyond 1e-5 of f64 "
+                  "(kernel/plain): " + ", ".join(
+                      f"{k} {k_bad[k][0]}/{p_bad[k][0]}" for k in truth
+                      if k_bad[k][0] or p_bad[k][0]), flush=True)
+            del truth
+        errs[(name_of(dtype), shape, present)] = (
+            max(v[1] for v in vs_plain.values()),
+            sum(v[0] for v in vs_plain.values()))
+        del got, ref
+        if shape == (50, 65, 128):
+            timing[(name_of(dtype), present)] = (
+                graph_ms(lambda: p3_part2.p3_part2_cuda(*args), 100),
+                cuda_ms(lambda: p3_part2.p3_part2_cuda(*args), 50),
+                cuda_ms(lambda: p3_part2.p3_part2_reference(*args), 10))
+            if dtype == torch.float32 and present == 0.5:
+                st = args[-1]
+                ops = plain_ops(lambda: p3main._part2_core(
+                    *args, p3main._part2_tables(st, gather=True)))
+                # the bytes asked of the allocator (it may hand out more:
+                # a block takes the unsplittable rest of its segment)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                asked = lambda k: torch.cuda.memory_stats()[
+                    f"requested_bytes.all.{k}"]
+                before = asked("current")
+                out = p3_part2.p3_part2_cuda(*args)
+                torch.cuda.synchronize()
+                peak_arrays = ((asked("peak") - before)
+                               / (args[1].numel() * args[1].element_size()))
+                del out
+                check(0 < peak_arrays <= 30, "B4: one call allocates "
+                      f"{peak_arrays:.1f} arrays of its shape at its peak")
+        del args, args64
+    return errs, timing, ops, peak_arrays
 
 
 B3_CASES = (   # (nens, ny, nz, nx, ntr, axis, a dz per member, member step)
@@ -499,7 +536,7 @@ def main():
     from pam_tpu_torch.modules import gcm_forcing
     from pam_tpu_torch.dycore.awfl import AwflDycore
     from pam_tpu_torch.ops import awfl_flux, p3_part2, weno, weno_x
-    from pam_tpu_torch.physics.p3 import sedimentation
+    from pam_tpu_torch.physics.p3 import main as p3main, sedimentation
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True)
@@ -555,21 +592,24 @@ def main():
               f"phase 5: {counts} in {nsteps} steps")
         print(f"phase 5 {line}", flush=True)
 
-    # 6. B4 (P3 part 2) kernel vs plain on the card
-    b4_errs, b4_timing, b4_ops = phase_b4(p3_part2)
+    # 6. B4 (all of P3 part 2) kernel vs plain on the card
+    b4_errs, b4_timing, b4_ops, b4_peak = phase_b4(p3_part2, p3main)
     n_b4 = 50 * 65 * 128
     b4_bounds = {name_of(d): bound_ms(
-        (p3_part2.N_IN_READ + p3_part2.N_OUT) * n_b4 * size, b4_ops, d)
+        (p3_part2.N_IN + p3_part2.N_OUT) * n_b4 * size, b4_ops, d)
         for d, size in ((torch.float32, 4), (torch.float64, 8))}
     print("phase 6 B4 kernel vs plain: max abs err (points beyond "
           "1e-12 f64 / 1e-5 f32 of the field's max) " +
-          ", ".join(f"{d}{s} {e:.3e} ({n})"
-                    for (d, s), (e, n) in b4_errs.items()) +
+          ", ".join(f"{d}{s} present {q} {e:.3e} ({n})"
+                    for (d, s, q), (e, n) in b4_errs.items()) +
           "; (50,65,128) us/call kernel (by eager launches)/plain (bound) " +
-          ", ".join(f"{d} {k * 1e3:.2f} ({h * 1e3:.2f})/{p * 1e3:.2f} "
-                    f"({b4_bounds[d][0] * 1e3:.2f} by {b4_bounds[d][1]})"
-                    for d, (k, h, p) in b4_timing.items()) +
-          f"; {b4_ops / n_b4:.0f} operations per point", flush=True)
+          ", ".join(f"{d} present {q} {k * 1e3:.2f} ({h * 1e3:.2f})/"
+                    f"{p * 1e3:.2f} ({b4_bounds[d][0] * 1e3:.2f} by "
+                    f"{b4_bounds[d][1]})"
+                    for (d, q), (k, h, p) in b4_timing.items()) +
+          f"; {b4_ops / n_b4:.0f} operations per point with the lookups as "
+          f"gathers; one call allocates {b4_peak:.1f} arrays of its shape",
+          flush=True)
 
     # 7. P3+SHOC golden trajectory on the card, f64, through both kernels
     for obj, attr in (weno_count, b4_count, sed_count):
@@ -659,10 +699,11 @@ def main():
               f"{counts['sub_cycles'] / nsteps:.1f} sub-cycles "
               f"{counts['awfl_flux'] / nsteps:.1f} B3 launches", flush=True)
 
-    # the kernels' record: float32 times at the main path's shapes; no
-    # single PyTorch call computes any of the three functions
+    # the kernels' record: float32 times at the main path's shapes (B4
+    # with cloud, rain and ice each at half of the points); no single
+    # PyTorch call computes any of the three functions
     k32, _, p32 = timing["float32"]
-    b32, _, bp32 = b4_timing["float32"]
+    b32, _, bp32 = b4_timing[("float32", 0.5)]
     b1_bound = b1_bounds["float32"]
     b4_bound = b4_bounds["float32"]
     # B3: the z call, the slower half of the main path's launches, under
@@ -674,6 +715,8 @@ def main():
     new_us = {"B1": [timing[d] for d in ("float32", "float64")]}
     for c in ("x", "z", "z member dz"):
         new_us[f"B3 {c}"] = [b3_timing[(d, c)] for d in ("float32",
+                                                         "float64")]
+    new_us["B4 part 2"] = [b4_timing[(d, 0.5)] for d in ("float32",
                                                          "float64")]
     print("us per call f32 / f64, now by graph replay (by eager launches) "
           "<- the previous kernel by eager launches: " + "; ".join(
@@ -693,7 +736,7 @@ def main():
          "source": "pam_tpu_torch/csrc/p3_part2.cu",
          "replaces": "pam_tpu/physics/p3/main.py:780",
          "launches": main_counts["p3_part2"],
-         "max_abs_err": max(e for (d, _), (e, _) in b4_errs.items()
+         "max_abs_err": max(e for (d, _, _), (e, _) in b4_errs.items()
                             if d == "float64"),
          "ms": b32, "plain_ms": bp32, "bound_ms": b4_bound[0],
          "bound_by": b4_bound[1], "library_ms": None},

@@ -5,7 +5,8 @@ shared library of its own with a plain C interface, loaded with ctypes;
 the compilers of all sources run side by side. The build happens at first
 use, into ``_build/`` beside this file, under a name keyed on a hash of
 the source, of every header ``csrc/*.cuh`` (``csrc/weno5.cuh`` is the
-limiter that ``weno_x.cu`` and ``awfl_flux.cu`` include) and of the
+limiter that ``weno_x.cu`` and ``awfl_flux.cu`` include,
+``csrc/p3_tables.cuh`` the table lookups of ``p3_part2.cu``) and of the
 flags: an edited source or header is rebuilt and an unchanged one is
 reused. A missing ``nvcc`` or a failed compile raises with the compiler's
 output; nothing falls back to the plain versions.
@@ -134,10 +135,12 @@ def library() -> types.SimpleNamespace:
                            "ops/weno_x.py")
     cdll = ctypes.CDLL(str(paths["p3_part2.cu"]))
     for name in ("pam_p3_part2_f32", "pam_p3_part2_f64"):
-        bind(cdll, name, [ptr, ptr, i64, ctypes.c_double, i32, ptr, ptr])
+        bind(cdll, name, [ptr, ptr, ptr, i64, ctypes.c_double, i32, ptr,
+                          ptr])
     bind(cdll, "pam_p3_part2_layout", [])
-    want = (p3_part2.N_IN * 10000 + p3_part2.N_OUT * 100
-            + len(p3_part2._constants()))
+    bind(cdll, "pam_p3_part2_table_size", [i32])
+    want = (p3_part2.N_IN * 1000000 + p3_part2.N_OUT * 10000
+            + len(p3_part2._constants()) * 100 + p3_part2.N_TABLES)
     if lib.pam_p3_part2_layout() != want:
         raise RuntimeError("csrc/p3_part2.cu expects another argument "
                            "layout than ops/p3_part2.py passes")

@@ -1,9 +1,11 @@
-"""Times of the WENO kernels on the card, at the main path's shapes: the
-periodic-x edge reconstruction (csrc/weno_x.cu) at (32000, 65) and the
+"""Times of the CUDA kernels on the card, at the main path's shapes: the
+periodic-x edge reconstruction (csrc/weno_x.cu) at (32000, 65), the
 AWFL directional flux (csrc/awfl_flux.cu) at 65x1x50, nens 128, three
-tracers, in x, in z and in z with a matrix set per member; float32 and
-float64; microseconds of device time per call, the launches replayed
-from a CUDA graph between two CUDA events.
+tracers, in x, in z and in z with a matrix set per member, and P3 part
+2 (csrc/p3_part2.cu) at (50, 65, 128) with cloud, rain and ice each at
+half of the points and at 2% of them; float32 and float64; microseconds
+of device time per call, the launches replayed from a CUDA graph
+between two CUDA events.
 
     python pam_tpu_torch/kernel_times.py                # this checkout
     python pam_tpu_torch/kernel_times.py --compare DIR  # against another
@@ -13,14 +15,21 @@ repository, unpacked with ``git archive``) and this one in turns, other,
 this, this, other, each in a process of its own on the same card, and
 prints both columns: two versions are compared inside one call only.
 ``--tiles`` also times the tilings that ops/weno_x.py::tiling and
-ops/awfl_flux.py::tile_faces choose among. ``--sass`` counts the
+ops/awfl_flux.py::tile_faces choose among, ``--b4-variants`` P3 part 2
+built with other block sizes and register caps. ``--sass`` counts the
 instructions of each kernel in the built libraries (``cuobjdump -sass``).
 Needs a CUDA device; uses only what both checkouts offer
-(``weno_edges_x_cuda``, ``flux_direction_cuda``, ``chip_smoke.b3_inputs``).
+(``weno_edges_x_cuda``, ``flux_direction_cuda``, ``chip_smoke.b3_inputs``,
+``p3_part2_cuda``, ``sample_inputs``). Where the other checkout's P3 part
+2 is still two stages (a table stage of dense contractions in PyTorch,
+then a kernel for the pointwise core), "B4 part 2" times both stages
+together and "B4 core alone" its kernel.
 """
 
 import argparse
 import collections
+import ctypes
+import inspect
 import json
 import os
 import re
@@ -29,6 +38,10 @@ import sys
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 B3_SHAPE = (128, 1, 50, 65, 3)      # nens, ny, nz, nx, tracers
+B4_SHAPE = (50, 65, 128)
+# published issue rates of one H100 SXM at its 1.98 GHz boost clock: 132
+# SMs, 4 warp instructions a clock each, 2 of them float64
+SMS, WARP_INSTR_PER_CLOCK, FP64_PER_CLOCK, CLOCK_HZ = 132, 4, 2, 1.98e9
 
 
 def cuda_ms(torch, fn, reps, per_graph=20):
@@ -55,6 +68,23 @@ def cuda_ms(torch, fn, reps, per_graph=20):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / (replays * per_graph)
+
+
+def eager_ms(torch, fn, reps):
+    """Mean milliseconds per call of fn between two CUDA events, the
+    calls launched one by one: device time only where the device, not
+    the host, is what the calls wait for."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def measure(root, tiles, reps):
@@ -93,21 +123,128 @@ def measure(root, tiles, reps):
                     torch, lambda: awfl_flux.flux_direction_cuda(
                         prim, trac, pres, axis, tb, levels,
                         faces_per_tile=tf), reps)
+        out.update(b4_times(torch, dtype, tag, reps))
     return {k: v * 1e3 for k, v in out.items()}
+
+
+def b4_times(torch, dtype, tag, reps):
+    """{case: ms per call} of P3 part 2 at B4_SHAPE in the checkout that
+    is on sys.path."""
+    from pam_tpu_torch.ops import p3_part2
+    from pam_tpu_torch.physics.p3 import main as p3main
+    out = {}
+    one_launch = "present" in inspect.signature(
+        p3_part2.sample_inputs).parameters
+    for present in (0.5, 0.02) if one_launch else (0.5,):
+        kw = {"present": present} if one_launch else {}
+        args = p3_part2.cast_inputs(p3_part2.sample_inputs(
+            B4_SHAPE, torch.float64, "cuda", seed=11, **kw), dtype)
+        name = "B4 part 2" + ("" if present == 0.5 else f" present {present}")
+        if one_launch:
+            out[f"{name} {tag}"] = cuda_ms(
+                torch, lambda: p3_part2.p3_part2_cuda(*args), reps)
+            continue
+        st = args[11]
+        # the table stage copies a Python scalar to the card (torch.where
+        # with a number), which no CUDA graph captures: launched one by
+        # one; ~100 launches over tens of MB each keep the device busy
+        out[f"{name} (eager) {tag}"] = eager_ms(
+            torch, lambda: p3_part2.p3_part2_cuda(
+                *args[:12], p3main._part2_tables(st)), reps)
+        out[f"B4 core alone {tag}"] = cuda_ms(
+            torch, lambda: p3_part2.p3_part2_cuda(*args), reps)
+    return out
+
+
+INLINE_MATH = "-DP3_MATH_INLINE=__forceinline__"
+# (threads a block, minimum resident blocks in f32, in f64, further nvcc
+# flags): the first is what csrc/p3_part2.cu builds with; the last two
+# inline the precise math at every call site, and time the kernel's
+# loads and stores without its arithmetic
+B4_VARIANTS = ((128, 5, 3, ""), (128, 4, 2, ""), (128, 6, 4, ""),
+               (256, 3, 2, ""), (32, 20, 12, ""),
+               (128, 5, 3, INLINE_MATH),
+               (128, 5, 3, "-DPAM_P3_COPY_ONLY"))
+
+
+def start_p3_build(name, *flags):
+    """Start nvcc on csrc/p3_part2.cu with further flags; returns (the
+    library it writes into the build directory, the running compiler)."""
+    from pam_tpu_torch import _cuda
+    src = _cuda.CSRC / "p3_part2.cu"
+    _cuda.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    so = _cuda.BUILD_DIR / f"{name}.so"
+    cmd = [_cuda._nvcc(), *_cuda.NVCC_FLAGS, *_cuda.SOURCE_FLAGS[src.name],
+           *flags, "-I", str(src.parent), "-o", str(so), str(src)]
+    return so, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+
+
+def b4_variants(reps):
+    """P3 part 2 built with each of B4_VARIANTS (all compilers side by
+    side), timed at B4_SHAPE with cloud, rain and ice each at none, 2%,
+    half and all of the points; prints one line a variant with its
+    registers and spills."""
+    sys.path.insert(0, os.path.dirname(HERE))
+    import torch
+    from pam_tpu_torch import _cuda
+    from pam_tpu_torch.ops import p3_part2
+    lib = _cuda.library()
+    running = [start_p3_build(
+        f"p3_variant_{n}", f"-DPAM_P3_THREADS={threads}",
+        f"-DPAM_P3_MIN_BLOCKS_F32={mb32}", f"-DPAM_P3_MIN_BLOCKS_F64={mb64}",
+        *extra.split())
+        for n, (threads, mb32, mb64, extra) in enumerate(B4_VARIANTS)]
+    cases = [(dtype, tag, present, p3_part2.cast_inputs(
+        p3_part2.sample_inputs(B4_SHAPE, torch.float64, "cuda", seed=11,
+                               present=present), dtype))
+             for dtype, tag in ((torch.float32, "f32"),
+                                (torch.float64, "f64"))
+             for present in (0.0, 0.02, 0.5, 1.0)]
+    ptr = ctypes.c_void_p
+    for variant, (so, proc) in zip(B4_VARIANTS, running):
+        log = proc.communicate()[0]
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {variant}:\n{log}")
+        cdll = ctypes.CDLL(str(so))
+        for name in ("pam_p3_part2_f32", "pam_p3_part2_f64"):
+            fn = getattr(cdll, name)
+            fn.argtypes = [ptr, ptr, ptr, ctypes.c_longlong, ctypes.c_double,
+                           ctypes.c_int, ptr, ptr]
+            fn.restype = ctypes.c_int
+            setattr(lib, name, fn)
+        times = ", ".join(
+            f"{tag} present {present} "
+            f"{cuda_ms(torch, lambda: p3_part2.p3_part2_cuda(*args), reps) * 1e3:.2f}"
+            for dtype, tag, present, args in cases)
+        used = "; ".join(ln.split(":", 1)[-1].strip()
+                         for ln in log.splitlines()
+                         if "registers" in ln or "spill" in ln)
+        print(f"B4 threads {variant[0]} min blocks f32 {variant[1]} f64 "
+              f"{variant[2]} {variant[3]}: us {times} | {used}", flush=True)
 
 
 def sass_counts():
     """Per kernel of the built libraries: instructions in all, and those
-    of the floating-point, special-function and memory pipes."""
+    of the floating-point, special-function and memory pipes. P3 part 2
+    is counted twice: as it is built, where every call site of pow, exp,
+    log, log10 and tanh shares one body, and with those inlined at every
+    site, which is what a point that takes every branch issues."""
     sys.path.insert(0, os.path.dirname(HERE))
     from pam_tpu_torch import _cuda
     groups = (("fp32", r"^(FFMA|FMUL|FADD)"), ("fp64", r"^(DFMA|DMUL|DADD)"),
               ("mufu", r"^MUFU"), ("ld/st global", r"^(LDG|STG|LD\.|ST\.)"),
-              ("ld/st shared", r"^(LDS|STS)"), ("int", r"^(IMAD|IADD|LEA)"))
+              ("ld/st shared", r"^(LDS|STS)"),
+              ("ld/st local", r"^(LDL|STL)"), ("int", r"^(IMAD|IADD|LEA)"),
+              ("compare/select", r"^(FSETP|DSETP|ISETP|FSEL|SEL|PLOP3)"),
+              ("branch", r"^(BRA|BSSY|BSYNC|CALL|RET)"))
     out = {}
-    for src, lib in _cuda.build().paths.items():
-        if src == "p3_part2.cu":
-            continue
+    inlined, proc = start_p3_build("p3_part2_inlined", INLINE_MATH)
+    if proc.wait() != 0:
+        raise RuntimeError(f"nvcc failed:\n{proc.stdout.read()}")
+    libs = [*_cuda.build().paths.values(), inlined]
+    for lib in libs:
+        suffix = " (math inlined)" if lib == inlined else ""
         text = subprocess.run(["cuobjdump", "-sass", str(lib)],
                               capture_output=True, text=True,
                               check=True).stdout
@@ -115,17 +252,28 @@ def sass_counts():
         for ln in text.splitlines():
             m = re.match(r"\s*Function : (\S+)", ln)
             if m:
-                name = m.group(1)
+                name = m.group(1) + suffix
                 out[name] = collections.Counter()
                 continue
-            m = re.match(r"\s*/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\d\s+)?([A-Z0-9_.]+)",
+            m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\d\s+)?([A-Z0-9_.]+)",
                          ln)
             if m and name:
                 out[name]["all"] += 1
                 for g, pat in groups:
                     if re.match(pat, m.group(1)):
                         out[name][g] += 1
-    return {k: dict(v) for k, v in out.items()}
+    out = {k: dict(v) for k, v in out.items()}
+    # P3 part 2 with its math inlined runs each instruction at most once
+    # a point (no loop but the grid's): the time the card needs to issue
+    # them all at B4_SHAPE, and the float64 ones through their pipe
+    warps = B4_SHAPE[0] * B4_SHAPE[1] * B4_SHAPE[2] / 32
+    for name, v in out.items():
+        if "p3_part2" in name:
+            v["issue bound us"] = warps * v["all"] / (
+                SMS * WARP_INSTR_PER_CLOCK * CLOCK_HZ) * 1e6
+            v["fp64 pipe bound us"] = warps * v.get("fp64", 0) / (
+                SMS * FP64_PER_CLOCK * CLOCK_HZ) * 1e6
+    return out
 
 
 def main(argv=None):
@@ -135,6 +283,7 @@ def main(argv=None):
     ap.add_argument("--compare", metavar="DIR",
                     help="another checkout, timed in turns with this one")
     ap.add_argument("--tiles", action="store_true")
+    ap.add_argument("--b4-variants", action="store_true")
     ap.add_argument("--sass", action="store_true")
     ap.add_argument("--reps", type=int, default=200)
     ap.add_argument("--json", action="store_true",
@@ -142,6 +291,9 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if args.sass:
         print(json.dumps({"sass": sass_counts()}))
+        return 0
+    if args.b4_variants:
+        b4_variants(args.reps)
         return 0
     if not args.compare:
         times = measure(args.root, args.tiles, args.reps)
@@ -159,11 +311,16 @@ def main(argv=None):
         proc = subprocess.run(
             [sys.executable, os.path.abspath(__file__), "--root", root,
              "--json", "--reps", str(args.reps)], capture_output=True,
-            text=True, check=True)
+            text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"timing {root} failed:\n"
+                               f"{proc.stderr[-3000:]}")
+        sys.stderr.write(proc.stderr)
         runs.append(json.loads(proc.stdout.strip().splitlines()[-1]))
     print(f"{smi}; us per call: other, this, this, other")
-    for k in runs[1]:
-        print(f"{k}: " + ", ".join(f"{r[k]:.2f}" for r in runs))
+    for k in list(runs[1]) + [k for k in runs[0] if k not in runs[1]]:
+        print(f"{k}: " + ", ".join(f"{r[k]:.2f}" if k in r else "-"
+                                   for r in runs))
     print(json.dumps({"card": smi, "other": [runs[0], runs[3]],
                       "this": [runs[1], runs[2]]}))
     return 0

@@ -1,62 +1,113 @@
-"""The pointwise core of P3 part 2: the CUDA kernel and its plain version.
+"""P3 part 2 in one launch: the CUDA kernel and its plain version.
 
 Replaces the Pallas TPU kernel of ``pam_tpu/physics/p3/main.py:780``
 (``p3_main_part2``, its ``use_pallas`` branch, body ``kernel`` :832) with
-``csrc/p3_part2.cu`` (kernel B4). :func:`p3_part2` routes by device: a
-CUDA tensor goes to the kernel (or raises), a CPU tensor to
-:func:`p3_part2_reference`, the port's ``_part2_core``.
+``csrc/p3_part2.cu`` (kernel B4). ``pam_tpu`` runs part 2 in two stages:
+``_part2_tables`` (DSD precursors, index walks, table lookups as dense
+hat-weight contractions) and the pointwise ``_part2_core``, which alone
+is its kernel. Here the kernel runs both stages from part 1's state, the
+lookups as gathers (``csrc/p3_tables.cuh``), so the table values never
+reach device memory. :func:`p3_part2` routes by device: a CUDA tensor
+goes to the kernel (or raises), a CPU tensor to
+:func:`p3_part2_reference`, the port's ``_part2_tables`` followed by
+``_part2_core``.
 
 The work is pointwise over every point of the column batch, so the
-wrapper hands the kernel flat views of any contiguous shape: 63 input
-arrays (10 arguments, the 18 ``_PART2_ST_KEYS`` fields of part 1, the 8
-in-cloud ratios, the 27 ``_PART2_TV_NAMES`` table values) and 27 output
-arrays (the 12 ``_PART2_OUT_KEYS`` fields, the 8 new in-cloud ratios,
-the 7 ``_PART2_DIAG_KEYS`` diagnostics).
+wrapper hands the kernel flat views of any contiguous shape: 36 input
+arrays (10 arguments, the 18 ``_PART2_ST_KEYS`` fields of part 1, its 8
+in-cloud ratios), the three lookup tables and seven per-call scalars,
+and 28 output arrays (the 12 ``_PART2_OUT_KEYS`` fields, the 8 new
+in-cloud ratios, the 7 ``_PART2_DIAG_KEYS`` diagnostics and ``lamr``).
 """
 
 from __future__ import annotations
+
+import functools
+import math
 
 import numpy as np
 import torch
 
 from ..physics.p3 import main as p3main
-from ..physics.p3.constants import (CONST, QSMALL, MINCLD, INCLOUD_LIMIT,
-                                    PRECIP_LIMIT)
+from ..physics.p3 import tables as tbl
+from ..physics.p3.constants import (CONST, QSMALL, NSMALL, MINCLD,
+                                    INCLOUD_LIMIT, PRECIP_LIMIT,
+                                    MU_R_CONSTANT, LOOKUP_TABLE_1A_DUM1_C)
 
-p3_part2_reference = p3main._part2_core
+# every input array is read once and every output written once: the
+# kernel's bytes are (N_IN + N_OUT) arrays of one value per point
+N_IN = 10 + len(p3main._PART2_ST_KEYS) + 8
+N_OUT = len(p3main._PART2_OUT_KEYS) + 8 + len(p3main._PART2_DIAG_KEYS) + 1
+N_TABLES = 4
 
-N_IN = 10 + len(p3main._PART2_ST_KEYS) + 8 + len(p3main._PART2_TV_NAMES)
-N_OUT = len(p3main._PART2_OUT_KEYS) + 8 + len(p3main._PART2_DIAG_KEYS)
-# of its N_IN inputs part 2 reads 57: its bytes are (N_IN_READ + N_OUT)
-# arrays of one value per point (csrc/p3_part2.cu, "What bounds it")
-N_IN_READ = 57
+
+def p3_part2_reference(dt, pres, inv_exner, cld_frac_l, cld_frac_i,
+                       cld_frac_r, inv_cl, inv_ci, inv_cr, qv_prev, t_prev,
+                       st, ccn_mode="prescribed"):
+    """The plain version of kernel B4: the port's table stage (hat-weight
+    contractions and all) followed by its pointwise core. ``st`` is part
+    1's output; returns (state dict, diagnostics)."""
+    return p3main._part2_core(dt, pres, inv_exner, cld_frac_l, cld_frac_i,
+                              cld_frac_r, inv_cl, inv_ci, inv_cr, qv_prev,
+                              t_prev, st, p3main._part2_tables(st), ccn_mode)
 
 
 def _constants() -> np.ndarray:
     """The constants the kernel reads, in the order of ``struct P3Consts``
-    of csrc/p3_part2.cu, as float64."""
+    of csrc/p3_part2.cu, as float64: the scheme's constants and the
+    products and sums of them that the plain version takes in Python
+    floats before they meet a tensor."""
     C = CONST
     if C.bcn != 2.0:   # the kernel writes lamc**bcn as lamc*lamc
         raise ValueError(f"csrc/p3_part2.cu assumes bcn == 2, got {C.bcn}")
+    mu_r = MU_R_CONSTANT
+    gam_mur1 = p3main._gamma(mu_r + 1.0)   # rain_dsd's Python-float factors
     return np.array([
         C.latent_heat_vapor, C.latent_heat_sublim, C.latent_heat_fusion,
         C.rv, C.cp, C.inv_cp, C.T_zerodegc, C.T_rainfrz, C.T_icenuc,
         C.eci, C.eri, C.inv_dropmass, C.cpw, C.aimm, C.cons3,
         C.cons5, C.cons6, C.f1r, C.f2r, C.mi0, C.nmltratio,
         C.inv_rho_rimeMax, C.nccnst, C.ep_2, C.max_total_ni, C.rho_h2o,
-        QSMALL, MINCLD, INCLOUD_LIMIT, PRECIP_LIMIT], dtype=np.float64)
+        QSMALL, MINCLD, INCLOUD_LIMIT, PRECIP_LIMIT,
+        NSMALL, mu_r, C.cons1, C.rho_rimeMin, C.rho_rimeMax,
+        LOOKUP_TABLE_1A_DUM1_C, gam_mur1, math.log(gam_mur1),
+        math.log(p3main._gamma(mu_r + 4.0)), math.log10(gam_mur1),
+        mu_r + 1.0, mu_r + 2.0, mu_r + 3.0, (mu_r + 1.0) * 1.0e5,
+        (mu_r + 1.0) * 500.0, np.pi * C.rho_h2o,
+        C.latent_heat_sublim * C.inv_cp, C.latent_heat_sublim ** 2,
+        C.cp * C.rv, 2.0 * np.pi], dtype=np.float64)
+
+
+@functools.lru_cache(maxsize=None)
+def kernel_tables(device: torch.device, dtype: torch.dtype):
+    """What the kernel reads beside its arrays, on ``device`` in ``dtype``,
+    built once: the ice, collection and rain-evaporation tables of
+    ``tables.device_tables``, and the values of the plain version that
+    are one number a call, computed as it computes them (in ``dtype``, on
+    ``device``, by the same PyTorch calls): exp(lgamma(mu_r + {2, 4, 7}))
+    of ``_part2_tables``, the logarithms of the last two (rain immersion
+    freezing), and log(T) and tanh(0.0415 (T - 218.8)) at T = T_zerodegc
+    (``qv_sat`` at the melting point)."""
+    ice, collect, _, _, revap = tbl.device_tables(device, dtype)
+    mu_r = torch.full((3,), MU_R_CONSTANT, dtype=dtype, device=device)
+    gam = p3main._gamma(mu_r + torch.tensor([2.0, 4.0, 7.0], dtype=dtype,
+                                            device=device))
+    t0 = torch.full((1,), CONST.T_zerodegc, dtype=dtype, device=device)
+    scalars = torch.cat([gam, torch.log(gam[1:]), torch.log(t0),
+                         torch.tanh(0.0415 * (t0 - 218.8))])
+    return tuple(t.contiguous() for t in (ice, collect, revap, scalars))
 
 
 def p3_part2_cuda(dt, pres, inv_exner, cld_frac_l, cld_frac_i, cld_frac_r,
-                  inv_cl, inv_ci, inv_cr, qv_prev, t_prev, st, tv,
+                  inv_cl, inv_ci, inv_cr, qv_prev, t_prev, st,
                   ccn_mode="prescribed"):
     """Launch ``csrc/p3_part2.cu`` on CUDA tensors of one shape and dtype
     (float32 or float64); the arguments and results are those of
-    :func:`p3_part2_reference`."""
+    :func:`p3_part2_reference`. Allocates its 28 outputs and ``mu_r``
+    (a constant fill) and nothing else."""
     ins = ([pres, inv_exner, cld_frac_l, cld_frac_i, cld_frac_r, inv_cl,
             inv_ci, inv_cr, qv_prev, t_prev]
-           + [st[k] for k in p3main._PART2_ST_KEYS] + list(st["inc"])
-           + [tv[k] for k in p3main._PART2_TV_NAMES])
+           + [st[k] for k in p3main._PART2_ST_KEYS] + list(st["inc"]))
     ref = ins[0]
     if not ref.is_cuda:
         raise ValueError(f"p3_part2_cuda needs CUDA tensors, got "
@@ -78,17 +129,24 @@ def p3_part2_cuda(dt, pres, inv_exner, cld_frac_l, cld_frac_i, cld_frac_r,
         raise ValueError(f"p3_part2_cuda: {len(ins)} inputs, not {N_IN}")
     from .. import _cuda
     lib = _cuda.library()
+    tabs = kernel_tables(ref.device, ref.dtype)
+    for k, t in enumerate(tabs):
+        if t.numel() != lib.pam_p3_part2_table_size(k):
+            raise ValueError(f"p3_part2_cuda: table {k} has {t.numel()} "
+                             f"elements, csrc/p3_tables.cuh expects "
+                             f"{lib.pam_p3_part2_table_size(k)}")
     outs = [torch.empty_like(ref) for _ in range(N_OUT)]
-    in_ptrs = np.array([a.data_ptr() for a in ins], dtype=np.uint64)
-    out_ptrs = np.array([a.data_ptr() for a in outs], dtype=np.uint64)
-    consts = _constants()
     fn = lib.pam_p3_part2_f32 if ref.dtype == torch.float32 \
         else lib.pam_p3_part2_f64
+    in_ptrs, out_ptrs, tab_ptrs = (
+        np.array([a.data_ptr() for a in arrs], dtype=np.uint64)
+        for arrs in (ins, outs, tabs))
+    consts = _constants()
     with torch.cuda.device(ref.device):
         stream = torch.cuda.current_stream(ref.device).cuda_stream
-        rc = fn(in_ptrs.ctypes.data, out_ptrs.ctypes.data, ref.numel(),
-                float(dt), int(ccn_mode == "const"), consts.ctypes.data,
-                stream)
+        rc = fn(in_ptrs.ctypes.data, out_ptrs.ctypes.data,
+                tab_ptrs.ctypes.data, ref.numel(), float(dt),
+                int(ccn_mode == "const"), consts.ctypes.data, stream)
     if rc != 0:
         raise RuntimeError(f"p3_part2 kernel launch failed: CUDA error {rc}")
     p3_part2_cuda.launches += 1
@@ -97,21 +155,25 @@ def p3_part2_cuda(dt, pres, inv_exner, cld_frac_l, cld_frac_i, cld_frac_r,
     o = dict(st)
     o.update(zip(p3main._PART2_OUT_KEYS, outs[:k_o]))
     o["inc"] = tuple(outs[k_o:k_o + 8])
-    o["mu_r"], o["lamr"] = tv["mu_r"], tv["lamr"]
-    return o, dict(zip(p3main._PART2_DIAG_KEYS, outs[k_o + 8:]))
+    o["lamr"] = outs[-1]
+    o["mu_r"] = torch.full_like(ref, MU_R_CONSTANT)
+    return o, dict(zip(p3main._PART2_DIAG_KEYS, outs[k_o + 8:-1]))
 
 
 p3_part2_cuda.launches = 0
 
 
-def sample_inputs(shape, dtype, device, seed=0, dt=20.0):
+def sample_inputs(shape, dtype, device, seed=0, dt=20.0, present=0.5):
     """Consistent inputs of :func:`p3_part2` at any shape, for comparing
     the kernel with its plain version: seeded points between 250 m and
     14.75 km (T from about 300 K down to 200 K, as in
-    tests/test_p3.py:64-94) with cloud, rain and ice present or absent at
-    random, over- and under-saturated vapour and partial cloud fractions,
-    passed through the port's part 1 and table stage. Returns the
-    argument tuple (dt, pres, ..., t_prev, st, tv)."""
+    tests/test_p3.py:64-94) with cloud, rain and ice each there with
+    probability ``present`` (0.5: no warp of the kernel is uniform; 0.02:
+    the species are as rare as in the model's own states), over- and
+    under-saturated vapour and partial cloud fractions, passed through
+    the port's part 1. Returns the argument tuple
+    (dt, pres, ..., t_prev, st); ``main._part2_tables(st)`` gives the
+    table values of the plain version's first stage."""
     rng = np.random.default_rng(seed)
 
     def u(lo=0.0, hi=1.0):
@@ -129,9 +191,9 @@ def sample_inputs(shape, dtype, device, seed=0, dt=20.0):
     dz = u(200.0, 500.0)
     exner = (p / 1e5) ** (287.042 / 1004.64)
     qv = 0.017 * np.exp(-z / 2500.0) * u(0.5, 1.5) + 1e-6
-    qc = some(1e-9, 2e-3, 0.5)
-    qr = some(1e-9, 4e-3, 0.5)
-    qi = some(1e-9, 2e-3, 0.5)
+    qc = some(1e-9, 2e-3, present)
+    qr = some(1e-9, 4e-3, present)
+    qi = some(1e-9, 2e-3, present)
     qm = qi * u()
     bm = qm / u(100.0, 900.0)
     f = dict(qc=qc, nc=u(0.2, 2.0) * 1e8 / rho, qr=qr,
@@ -151,40 +213,38 @@ def sample_inputs(shape, dtype, device, seed=0, dt=20.0):
         t["exner"], inv_cl, inv_ci, inv_cr, t["th"] * t["exner"], t["qv"],
         t["th"], t["qc"], t["nc"], t["qr"], t["nr"], t["qi"], t["ni"],
         t["qm"], t["bm"], zero)
-    tv = p3main._part2_tables(st)
     return (dt, t["pres"], t["inv_exner"], t["cld_frac_l"], t["cld_frac_i"],
             t["cld_frac_r"], inv_cl, inv_ci, inv_cr, t["qv_prev"],
-            t["t_prev"], st, tv)
+            t["t_prev"], st)
 
 
 def cast_inputs(args, dtype):
     """:func:`sample_inputs`' tuple with every tensor cast to ``dtype``."""
-    dt, *arrs, st, tv = args
+    dt, *arrs, st = args
     st = {k: (tuple(v.to(dtype) for v in st[k]) if k == "inc"
               else st[k].to(dtype)) for k in st}
-    return (dt, *(a.to(dtype) for a in arrs), st,
-            {k: v.to(dtype) for k, v in tv.items()})
+    return (dt, *(a.to(dtype) for a in arrs), st)
 
 
 def outputs(o, d):
-    """The 27 results of part 2 (the kernel's outputs) by name."""
-    out = {k: o[k] for k in p3main._PART2_OUT_KEYS}
+    """The 28 results of part 2 (the kernel's outputs) by name."""
+    out = {k: o[k] for k in p3main._PART2_OUT_KEYS + ("lamr",)}
     out.update({f"inc{i}": v for i, v in enumerate(o["inc"])})
     out.update({k: d[k] for k in p3main._PART2_DIAG_KEYS})
     return out
 
 
 def p3_part2(dt, pres, inv_exner, cld_frac_l, cld_frac_i, cld_frac_r,
-             inv_cl, inv_ci, inv_cr, qv_prev, t_prev, st, tv,
+             inv_cl, inv_ci, inv_cr, qv_prev, t_prev, st,
              ccn_mode="prescribed"):
-    """The pointwise core of P3 part 2: the CUDA kernel for CUDA tensors,
-    the plain version for CPU tensors."""
+    """P3 part 2 from part 1's state ``st``: the CUDA kernel for CUDA
+    tensors, the plain version for CPU tensors."""
     if pres.is_cuda:
         return p3_part2_cuda(dt, pres, inv_exner, cld_frac_l, cld_frac_i,
                              cld_frac_r, inv_cl, inv_ci, inv_cr, qv_prev,
-                             t_prev, st, tv, ccn_mode)
+                             t_prev, st, ccn_mode)
     if pres.device.type != "cpu":
         raise ValueError(f"p3_part2: no route for device {pres.device}")
     return p3_part2_reference(dt, pres, inv_exner, cld_frac_l, cld_frac_i,
                               cld_frac_r, inv_cl, inv_ci, inv_cr, qv_prev,
-                              t_prev, st, tv, ccn_mode)
+                              t_prev, st, ccn_mode)

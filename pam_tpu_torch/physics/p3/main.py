@@ -5,9 +5,11 @@ freezing).
 
 Whole-tensor torch ops: every per-level branch of the Fortran is a mask.
 Arrays are (nz, ...batch) with k=0 the model TOP; q/n are dry mixing
-ratios. The pointwise core of part 2 (``_part2_core``) is the plain
-version of the CUDA kernel ``csrc/p3_part2.cu`` (``ops/p3_part2.py``):
-``p3_main_part2`` sends CUDA tensors to the kernel and CPU tensors here.
+ratios. Part 2's two stages (``_part2_tables``, then the pointwise
+``_part2_core``) are together the plain version of the CUDA kernel
+``csrc/p3_part2.cu`` (``ops/p3_part2.py``), which runs both in one
+launch: ``p3_main_part2`` sends CUDA tensors to the kernel and CPU
+tensors here.
 """
 
 from __future__ import annotations
@@ -236,7 +238,8 @@ def p3_main_part1(dt, pres, dpres, dz, nc_nuceat_tend, inv_exner, exner,
 
 # -------------------------------------------------------------------- part 2
 # Names and order of the table-stage outputs consumed by the pointwise
-# core (the contract between _part2_tables, _part2_core and the kernel)
+# core (the contract between _part2_tables and _part2_core; the kernel
+# keeps them in registers, csrc/p3_part2.cu::TableValues)
 _PART2_TV_NAMES = (
     "mu_r", "lamr", "cdistr", "logn0r", "nr_in_dsd", "nr_in_t", "ni_in_t",
     "qm_in2", "bm_in2", "tv_qi_fallspd", "tv_ni_selfcol", "tv_qc2qi_col",
@@ -254,10 +257,14 @@ _PART2_DIAG_KEYS = ("qv2qi_depos_tend", "precip_total_tend", "nevapr",
                     "liq_ice_exchange")
 
 
-def _part2_tables(st):
-    """Stage A of p3_main_part2: the DSD precursors, the index walks, the
-    table contractions and the revap interpolation. Returns a dict keyed
-    by _PART2_TV_NAMES."""
+def _part2_tables(st, gather=False):
+    """Stage A of p3_main_part2's plain version: the DSD precursors, the
+    index walks, the table contractions and the revap interpolation.
+    Returns a dict keyed by _PART2_TV_NAMES. With ``gather`` the lookups
+    read their corners by integer indexing (``tables.access_*_gather``,
+    the kernel's arithmetic) instead of contracting dense hat weights:
+    the same values to rounding, and the count of the work a lookup
+    needs."""
     qc_in, qr_in, qi_in, qm_in, nc_in, nr_in, ni_in, bm_in = st["inc"]
     ice_tab, coll_tab, _, _, revap_t = tbl.device_tables(qc_in.device,
                                                          qc_in.dtype)
@@ -284,19 +291,24 @@ def _part2_tables(st):
     # contraction (1-based table indices 2,3,4,5,7,8,10)
     (tv_qi_fallspd, tv_ni_selfcol, tv_qc2qi_col, tv_qi2qr_melt,
      tv_ni_lammax, tv_ni_lammin, tv_qi2qr_vent) = (
-        torch.where(has_i, v, 0.0) for v in tbl.access_ice_table_multi(
-            ice_tab, (1, 2, 3, 4, 6, 7, 9), dum1, dum4, dum5))
+        torch.where(has_i, v, 0.0) for v in (
+            tbl.access_ice_table_gather if gather
+            else tbl.access_ice_table_multi)(
+                ice_tab, (1, 2, 3, 4, 6, 7, 9), dum1, dum4, dum5))
     dumj, dum3 = tbl.indices_1b(qr_in, nr_in_t)
     has_ir = has_i & (qr_in >= QSMALL)
     tv_nr_col, tv_qr2qi_col = (
-        torch.where(has_ir, v, 0.0) for v in tbl.access_collect_table_multi(
-            coll_tab, (0, 1), dum1, dum3, dum4, dum5))
+        torch.where(has_ir, v, 0.0) for v in (
+            tbl.access_collect_table_gather if gather
+            else tbl.access_collect_table_multi)(
+                coll_tab, (0, 1), dum1, dum3, dum4, dum5))
 
     # rain-evap ventilation table (:2358-2410)
     safe_l = torch.clamp(lamr, min=1e-300)
     dumii3, dumjj3, rdumii3, rdumjj3 = tbl.indices_3(mu_r, safe_l)
-    revap_val = tbl.access_rain_table(revap_t, dumii3, dumjj3, rdumii3,
-                                      rdumjj3)
+    revap_val = (tbl.access_rain_table_gather((revap_t,), rdumii3, rdumjj3)[0]
+                 if gather else tbl.access_rain_table(
+                     revap_t, dumii3, dumjj3, rdumii3, rdumjj3))
     loc = locals()
     return {k: loc[k] for k in _PART2_TV_NAMES}
 
@@ -306,8 +318,9 @@ def _part2_core(dt, pres, inv_exner, cld_frac_l, cld_frac_i, cld_frac_r,
                 ccn_mode="prescribed"):
     """Stage B of p3_main_part2: the whole process-rate / conservation /
     prognostic-update chain, pointwise (no reductions, stencils or
-    gathers). The plain version of kernel B4 (``csrc/p3_part2.cu``);
-    ``tv`` is _part2_tables' output. Returns (state dict, diagnostics)."""
+    gathers). With _part2_tables before it, the plain version of kernel
+    B4 (``csrc/p3_part2.cu``); ``tv`` is _part2_tables' output. Returns
+    (state dict, diagnostics)."""
     inv_dt = 1.0 / dt
     lv, ls, lf = C.latent_heat_vapor, C.latent_heat_sublim, C.latent_heat_fusion
 
@@ -756,15 +769,15 @@ def p3_main_part2(dt, pres, inv_exner, cld_frac_l, cld_frac_i, cld_frac_r,
                   qv_prev, t_prev, st, ccn_mode="prescribed"):
     """All microphysical process rates + prognostic updates
     (micro_p3.F90 p3_main_part2:483-975). ``st`` is part1's output dict;
-    returns an updated dict + diagnostics. The table stage runs here; the
-    pointwise core goes through ``ops.p3_part2.p3_part2``: kernel B4 for
-    CUDA tensors, :func:`_part2_core` for CPU tensors.
+    returns an updated dict + diagnostics. All of it goes through
+    ``ops.p3_part2.p3_part2``: for CUDA tensors one launch of kernel B4,
+    table lookups included; for CPU tensors :func:`_part2_tables`
+    followed by :func:`_part2_core`.
     ni_activated/inv_qc_relvar are accepted for signature parity."""
     from ...ops import p3_part2
-    tv = _part2_tables(st)
     return p3_part2.p3_part2(dt, pres, inv_exner, cld_frac_l, cld_frac_i,
                              cld_frac_r, inv_cl, inv_ci, inv_cr, qv_prev,
-                             t_prev, st, tv, ccn_mode)
+                             t_prev, st, ccn_mode)
 
 
 # ------------------------------------------------------- homogeneous freezing

@@ -5,14 +5,23 @@ ref micro_p3.F90 p3_init_a :134-206, p3_init_b :236-361,
 access_lookup_table* :1508-1615, find_lookupTable_indices_* :1620-1770).
 
 The data file is the port's own copy, ``tables/p3_lookup_table_1.dat-v4``
-beside this module (byte for byte ``pam_tpu``'s). The interpolation keeps
-``pam_tpu``'s hat-weight contractions, here ``torch.einsum`` products: every
-fractional index x lies between its floor and floor + 1, so linear
-interpolation along an axis of n entries is exactly the contraction
-with the weights max(0, 1 - |k - x|). The products run in full float32
-on the card: ``device_tables`` sets
-``torch.backends.cuda.matmul.allow_tf32 = False`` (a gather form is to
-be measured against them, ROADMAP A1).
+beside this module (byte for byte ``pam_tpu``'s). The interpolation
+exists in two forms that compute the same numbers:
+
+* ``pam_tpu``'s hat-weight contractions (``access_*_table_multi``), here
+  ``torch.einsum`` products: every fractional index x lies between its
+  floor and floor + 1, so linear interpolation along an axis of n entries
+  is exactly the contraction with the weights max(0, 1 - |k - x|). The
+  products run in full float32 on the card: ``device_tables`` sets
+  ``torch.backends.cuda.matmul.allow_tf32 = False``. Part 3, the
+  sedimentation loops and the plain version of P3 part 2 use them.
+* the gather form (``access_*_table_gather``): along each axis only the
+  entries k = min(floor(x), n - 2) and k + 1 carry a nonzero hat weight,
+  so each lookup reads its 2^d corners by integer indexing and combines
+  them with those two weights, axis by axis in the contractions' order.
+  It is the arithmetic of ``csrc/p3_tables.cuh``, which the CUDA kernel
+  of P3 part 2 (``csrc/p3_part2.cu``) runs on the card; here it is the
+  form the CPU tests hold against ``pam_tpu``.
 """
 
 from __future__ import annotations
@@ -227,4 +236,66 @@ def access_rain_table_multi(tabs, rdumii, rdumjj):
     wj = _hat(t.shape[1], rdumjj)
     T1 = torch.einsum('...i,ije->...je', wi, t)
     out = torch.einsum('...j,...je->...e', wj, T1)
+    return tuple(out[..., n] for n in range(t.shape[-1]))
+
+
+# ---------------------------------------------------------------------------
+# interpolation as gathers: the arithmetic of csrc/p3_tables.cuh
+# ---------------------------------------------------------------------------
+
+def _corner(n, x):
+    """(k, w0, w1): the entries k and k + 1 of an axis of n entries that
+    carry ``_hat(n, x)``'s nonzero weights at the clamped fractional
+    position x in [0, n - 1], and those weights. At x = n - 1 exactly
+    k is n - 2 and the weights are 0 and 1."""
+    k = torch.clamp(torch.floor(x).to(torch.int64), 0, n - 2)
+    kf = k.to(x.dtype)
+    return k, 1.0 - (x - kf), 1.0 - ((kf + 1.0) - x)
+
+
+def access_ice_table_gather(tab, indices, dum1, dum4, dum5):
+    """:func:`access_ice_table_multi` by gathers: 8 corners, contracted
+    over size, then rime, then density."""
+    t = tab[..., list(indices)]                   # (5, 4, ISIZE, K)
+    (i, wi0, wi1), (k, wk0, wk1), (j, wj0, wj1) = (
+        _corner(n, x) for n, x in ((t.shape[2], dum1), (t.shape[1], dum4),
+                                   (t.shape[0], dum5)))
+    w = lambda a: a[..., None]
+
+    def rime(jj):
+        size = lambda kk: t[jj, kk, i] * w(wi0) + t[jj, kk, i + 1] * w(wi1)
+        return size(k) * w(wk0) + size(k + 1) * w(wk1)
+    out = rime(j) * w(wj0) + rime(j + 1) * w(wj1)
+    return tuple(out[..., n] for n in range(len(indices)))
+
+
+def access_collect_table_gather(tab, indices, dum1, dum3, dum4, dum5):
+    """:func:`access_collect_table_multi` by gathers: 16 corners,
+    contracted over size, rain size, rime, then density."""
+    t = tab[..., list(indices)]                   # (5, 4, ISIZE, J, K)
+    (i, wi0, wi1), (r, wr0, wr1), (k, wk0, wk1), (j, wj0, wj1) = (
+        _corner(n, x) for n, x in ((t.shape[2], dum1), (t.shape[3], dum3),
+                                   (t.shape[1], dum4), (t.shape[0], dum5)))
+    w = lambda a: a[..., None]
+
+    def rime(jj):
+        def rain(kk):
+            size = lambda rr: (t[jj, kk, i, rr] * w(wi0)
+                               + t[jj, kk, i + 1, rr] * w(wi1))
+            return size(r) * w(wr0) + size(r + 1) * w(wr1)
+        return rain(k) * w(wk0) + rain(k + 1) * w(wk1)
+    out = rime(j) * w(wj0) + rime(j + 1) * w(wj1)
+    return tuple(out[..., n] for n in range(len(indices)))
+
+
+def access_rain_table_gather(tabs, rdumii, rdumjj):
+    """:func:`access_rain_table_multi` by gathers: 4 corners, contracted
+    over size, then mu."""
+    t = torch.stack(list(tabs), dim=-1)           # (300, 10, K)
+    (i, wi0, wi1), (m, wm0, wm1) = (
+        _corner(n, x) for n, x in ((t.shape[0], rdumii),
+                                   (t.shape[1], rdumjj)))
+    w = lambda a: a[..., None]
+    size = lambda mm: t[i, mm] * w(wi0) + t[i + 1, mm] * w(wi1)
+    out = size(m) * w(wm0) + size(m + 1) * w(wm1)
     return tuple(out[..., n] for n in range(t.shape[-1]))

@@ -5,7 +5,12 @@ the same numpy-seeded inputs, float64 on the CPU, and kernel B4
 Tolerances, relative to each field's largest |value|:
 * tables: exactly equal (the port's copy of the file has pam_tpu's
   sha256, and the same numpy code reads it);
-* the pointwise core of part 2 (``_part2_core``): 1e-12 against the JAX
+* the lookups as gathers (``access_*_table_gather``, the arithmetic of
+  csrc/p3_tables.cuh): 1e-13 against the port's and pam_tpu's hat-weight
+  contractions (the same two nonzero terms per axis; a contraction may
+  fuse its multiply-adds);
+* part 2, its pointwise core (``_part2_core``) and its plain version
+  (``p3_part2_reference``: table stage + core): 1e-12 against the JAX
   XLA path and against the Pallas kernel in interpret mode (both compute
   the same expressions; they differ only in rounding);
 * whole steps (p3_main, sedimentation, P3Micro.timestep): 1e-11;
@@ -143,11 +148,121 @@ def test_murphy_koop_and_saturation_adjustment_match_jax():
         assert _rel(a, _np(b)) < 1e-13
 
 
-# ------------------------------------------------------- part 2 core (B4)
+# ------------------------------------------- the lookups as gathers (B4)
+def _lookup_positions():
+    """Zero-based fractional table positions (size, rime, density, rain
+    size; rain-table size, mu): 300 seeded ones inside each axis, then
+    its edges: 0, n - 1 exactly, integers, just under an integer, and
+    position 0 of the rain-size axis (indices_1b's inactive branch)."""
+    rng = np.random.default_rng(12)
+    n = 300
+
+    def axis(size):
+        edges = [0.0, size - 1.0, 1.0, size - 2.0, size - 1.0 - 1e-13,
+                 2.0 - 1e-13, 0.5, 0.0]
+        return np.concatenate([rng.uniform(0.0, size - 1.0, n), edges])
+    return tuple(axis(s) for s in (50, 4, 5, 30, 300, 10))
+
+
+@pytest.mark.parametrize("table", ["ice", "collect", "rain"])
+def test_gather_lookups_match_hat_contractions_and_jax(table):
+    import jax.numpy as jnp
+    from pam_tpu.physics.p3 import tables as jtbl
+    d1, d4, d5, d3, ri, rj = _lookup_positions()
+    J, T = jnp.asarray, torch.as_tensor
+    tice, tcoll, vn, vm, revap = ttbl.device_tables(torch.device("cpu"),
+                                                    torch.float64)
+    if table == "ice":
+        jice = J(jtbl.load_ice_tables()[0])
+        for idx in ((1, 2, 3, 4, 6, 7, 9), (1, 5, 6, 7, 8, 10, 11)):
+            got = ttbl.access_ice_table_gather(tice, idx, T(d1), T(d4),
+                                               T(d5))
+            hat = ttbl.access_ice_table_multi(tice, idx, T(d1), T(d4), T(d5))
+            ref = jtbl.access_ice_table_multi(jice, idx, J(d1), J(d4), J(d5))
+            assert len(got) == len(idx)
+            for g, h, r in zip(got, hat, ref):
+                assert _rel(_np(h), _np(g)) < 1e-13
+                assert _rel(r, _np(g)) < 1e-13
+    elif table == "collect":
+        jcoll = J(jtbl.load_ice_tables()[1])
+        got = ttbl.access_collect_table_gather(tcoll, (0, 1), T(d1), T(d3),
+                                               T(d4), T(d5))
+        hat = ttbl.access_collect_table_multi(tcoll, (0, 1), T(d1), T(d3),
+                                              T(d4), T(d5))
+        ref = jtbl.access_collect_table_multi(jcoll, (0, 1), J(d1), J(d3),
+                                              J(d4), J(d5))
+        for g, h, r in zip(got, hat, ref):
+            assert _rel(_np(h), _np(g)) < 1e-13
+            assert _rel(r, _np(g)) < 1e-13
+    else:
+        rt = [J(a) for a in jtbl.build_rain_tables()]
+        got = ttbl.access_rain_table_gather((vn, vm, revap), T(ri), T(rj))
+        hat = ttbl.access_rain_table_multi((vn, vm, revap), T(ri), T(rj))
+        ref = jtbl.access_rain_table_multi(rt, J(ri), J(rj))
+        one = jtbl.access_rain_table(rt[2], None, None, J(ri), J(rj))
+        assert _rel(one, _np(got[2])) < 1e-13
+        for g, h, r in zip(got, hat, ref):
+            assert _rel(_np(h), _np(g)) < 1e-13
+            assert _rel(r, _np(g)) < 1e-13
+
+
+def test_gather_lookups_at_the_index_walks_edges():
+    """The walks' own edge cases through both forms: sizes that clamp at
+    either end of the ice table, no rime and all rime, rime densities at
+    the bounds and at the 650 kg/m3 kink, rain too sparse for the
+    collection table (indices_1b inactive: position 0), and lamr on both
+    branches of indices_3, at their joint (mean size 195e-6 m) and
+    clamped at either end."""
+    import jax.numpy as jnp
+    from pam_tpu.physics.p3 import tables as jtbl
+    J, T = jnp.asarray, torch.as_tensor
+    qi = np.array([1e-14, 1e-9, 1e-6, 1e-3, 5e-3, 1e-4, 1e-4, 1e-4])
+    ni = np.array([1e9, 1e5, 1e4, 1e2, 1e-16, 1e5, 1e5, 1e5])
+    qm = qi * np.array([0.0, 1.0, 0.5, 1.0 / 3.0, 2.0 / 3.0, 1.0, 0.0, 0.1])
+    rhop = np.array([0.0, 50.0, 650.0, 900.0, 1200.0, 649.999, 650.001,
+                     400.0])
+    qr = np.array([0.0, 1e-15, 1e-14, 1e-9, 1e-4, 1e-2, 1e-6, 1e-6])
+    nr = np.array([1e3, 1e3, 0.0, 1e2, 1e4, 1e-16, 1e9, 1e3])
+    mean_size = np.array([1e-7, 5e-6, 1e-4, 195e-6, 195e-6 * (1 + 1e-15),
+                          196e-6, 1e-3, 1e-1])
+    lamr = 2.0 / mean_size
+    ta = ttbl.indices_1a(T(qi), T(ni), T(qm), T(rhop))
+    tb = ttbl.indices_1b(T(qr), T(nr))
+    t3 = ttbl.indices_3(T(np.ones(8)), T(lamr))
+    ja = jtbl.indices_1a(J(qi), J(ni), J(qm), J(rhop))
+    jb = jtbl.indices_1b(J(qr), J(nr))
+    j3 = jtbl.indices_3(J(np.ones(8)), J(lamr))
+    # the corners the gather form finds are the walks' integer indices
+    for n, k, x in ((50, ta[0], ta[3]), (4, ta[2], ta[4]), (5, ta[1], ta[5]),
+                    (30, tb[0], tb[1]), (300, t3[0], t3[2]),
+                    (10, t3[1], t3[3])):
+        kc, w0, w1 = ttbl._corner(n, x)
+        at_k = (kc == k) | ((kc == k - 1) & (w0 == 0.0))   # x = n - 1
+        assert bool(at_k.all()), (n, k, kc)
+        assert bool(((w0 >= 0) & (w1 >= 0) & (w0 + w1 == 1.0)).all())
+    assert float(tb[1][0]) == 0.0 and float(tb[1][2]) == 0.0   # inactive
+    assert float(t3[2].min()) == 0.0 and float(t3[2].max()) == 299.0
+    jice, jcoll = (J(a) for a in jtbl.load_ice_tables())
+    tice, tcoll, _, _, revap = ttbl.device_tables(torch.device("cpu"),
+                                                  torch.float64)
+    idx = (1, 2, 3, 4, 6, 7, 9)
+    got = ttbl.access_ice_table_gather(tice, idx, *ta[3:])
+    got += ttbl.access_collect_table_gather(tcoll, (0, 1), ta[3], tb[1],
+                                            ta[4], ta[5])
+    got += ttbl.access_rain_table_gather((revap,), t3[2], t3[3])
+    ref = jtbl.access_ice_table_multi(jice, idx, *ja[3:])
+    ref += jtbl.access_collect_table_multi(jcoll, (0, 1), ja[3], jb[1],
+                                           ja[4], ja[5])
+    ref += (jtbl.access_rain_table(J(jtbl.build_rain_tables()[2]), *j3),)
+    for g, r in zip(got, ref):
+        assert _rel(r, _np(g)) < 1e-13
+
+
+# ------------------------------------------------------------ part 2 (B4)
 @pytest.fixture(scope="module")
 def part2_inputs():
-    """Seeded (30, 8) float64 columns through the port's part 1 and table
-    stage; the same values as numpy for JAX."""
+    """Seeded (30, 8) float64 columns through the port's part 1; the same
+    values as numpy for JAX."""
     return p3_part2.sample_inputs((30, 8), torch.float64, "cpu", seed=3)
 
 
@@ -156,16 +271,62 @@ def test_part2_core_matches_jax_xla(part2_inputs, ccn_mode):
     import jax.numpy as jnp
     from pam_tpu.physics.p3 import main as jmain
     args = part2_inputs
-    o, d = p3_part2.p3_part2(*args, ccn_mode=ccn_mode)
+    tv = tmain._part2_tables(args[11])
+    o, d = tmain._part2_core(*args, tv, ccn_mode)
     jo, jd = jmain._part2_core(args[0], *(jnp.asarray(_np(a))
                                           for a in args[1:11]),
-                               _jax_dict(args[11]), _jax_dict(args[12]),
-                               ccn_mode)
+                               _jax_dict(args[11]), _jax_dict(tv), ccn_mode)
     got, ref = _outputs(o, d), _outputs(jo, jd)
     # every process of the chain is active somewhere in these inputs
     assert all(np.count_nonzero(_np(d[k])) > 20 for k in d)
     for k in ref:
         assert _rel(ref[k], _np(got[k])) < 1e-12, k
+
+
+@pytest.mark.parametrize("present", [0.5, 0.02])
+@pytest.mark.parametrize("ccn_mode", ["prescribed", "const"])
+def test_part2_reference_matches_jax_part2(ccn_mode, present):
+    """The kernel's plain version (table stage + core, what a CPU tensor
+    gets from ``p3_part2``) against pam_tpu's whole part 2, with the
+    species common and rare."""
+    import jax.numpy as jnp
+    from pam_tpu.physics.p3 import main as jmain
+    args = p3_part2.sample_inputs((30, 40), torch.float64, "cpu", seed=8,
+                                  present=present)
+    frac = float((args[11]["inc"][2] > 0).double().mean())
+    assert abs(frac - present) < 0.25 * present + 0.01
+    o, d = p3_part2.p3_part2(*args, ccn_mode=ccn_mode)
+    o2, d2 = p3_part2.p3_part2_reference(*args, ccn_mode=ccn_mode)
+    j = [jnp.asarray(_np(a)) for a in args[1:11]]
+    jo, jd = jmain.p3_main_part2(args[0], *j[:8], None, None, j[8], j[9],
+                                 _jax_dict(args[11]), ccn_mode=ccn_mode)
+    got, same, ref = _outputs(o, d), _outputs(o2, d2), _outputs(jo, jd)
+    assert sorted(got) == sorted(ref) and len(got) == p3_part2.N_OUT
+    for k in ref:
+        assert torch.equal(got[k], same[k]), k
+        assert _rel(ref[k], _np(got[k])) < 1e-12, k
+    assert float(o["mu_r"].min()) == float(o["mu_r"].max()) == 1.0
+
+
+@pytest.mark.parametrize("present", [0.5, 0.02])
+def test_part2_tables_gather_form_matches_contractions(present):
+    """The table stage with its lookups as gathers (the kernel's stage A,
+    in plain PyTorch) against the contractions the plain version uses:
+    every table value, and part 2's results from either."""
+    args = p3_part2.sample_inputs((30, 40), torch.float64, "cpu", seed=8,
+                                  present=present)
+    tv = tmain._part2_tables(args[11])
+    tg = tmain._part2_tables(args[11], gather=True)
+    assert sorted(tv) == sorted(tmain._PART2_TV_NAMES) == sorted(tg)
+    used = sum(int(np.count_nonzero(_np(tv[k]))) for k in tv
+               if k.startswith("tv_"))
+    assert used > (200 if present == 0.5 else 5)
+    for k in tv:
+        assert _rel(_np(tv[k]), _np(tg[k])) < 1e-13, k
+    got = _outputs(*tmain._part2_core(*args, tg))
+    ref = _outputs(*tmain._part2_core(*args, tv))
+    for k in ref:
+        assert _rel(_np(ref[k]), _np(got[k])) < 1e-12, k
 
 
 def test_part2_core_matches_pallas_kernel_interpret(part2_inputs):
@@ -176,6 +337,8 @@ def test_part2_core_matches_pallas_kernel_interpret(part2_inputs):
     args = part2_inputs
     o, d = tmain.p3_main_part2(*args[:9], None, None, args[9], args[10],
                                args[11])
+    assert len(args) == 12 and torch.equal(o["lamr"], tmain._part2_tables(
+        args[11])["lamr"])
     j = [jnp.asarray(_np(a)) for a in args[1:11]]
     with pltpu.force_tpu_interpret_mode():
         jo, jd = jmain.p3_main_part2(args[0], *j[:8], None, None, j[8],
@@ -189,8 +352,18 @@ def test_part2_core_matches_pallas_kernel_interpret(part2_inputs):
 def test_part2_cuda_wrapper_refuses_cpu_tensors(part2_inputs):
     with pytest.raises(ValueError, match="CUDA"):
         p3_part2.p3_part2_cuda(*part2_inputs)
-    assert p3_part2.N_IN == 63 and p3_part2.N_OUT == 27
-    assert len(p3_part2._constants()) == 30
+    with pytest.raises(ValueError, match="no route"):
+        p3_part2.p3_part2(part2_inputs[0], part2_inputs[1].to("meta"),
+                          *part2_inputs[2:])
+    assert p3_part2.N_IN == 36 and p3_part2.N_OUT == 28
+    assert p3_part2.N_TABLES == 4 and len(p3_part2._constants()) == 50
+    tabs = p3_part2.kernel_tables(torch.device("cpu"), torch.float64)
+    assert [t.numel() for t in tabs] == [12000, 60000, 3000, 7]
+    assert all(t.is_contiguous() for t in tabs)
+    np.testing.assert_allclose(
+        _np(tabs[3]), [2.0, 24.0, 5040.0, np.log(24.0), np.log(5040.0),
+                       np.log(273.15), np.tanh(0.0415 * (273.15 - 218.8))],
+        rtol=1e-14)
 
 
 def _beyond(ref, got, tol):
@@ -201,19 +374,21 @@ def _beyond(ref, got, tol):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("present", [0.5, 0.02])
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 @pytest.mark.parametrize("shape", [(50, 65, 128), (1000003,), (12, 16, 2)])
-def test_cuda_kernel_matches_plain_version(dtype, shape):
+def test_cuda_kernel_matches_plain_version(dtype, shape, present):
     """On the card, with chip_smoke.py's tolerances: in f64 every field
     within 1e-12 of its largest |value|; in f32 the kernel and the plain
     version are held against the plain version in f64 at 1e-5, and the
     kernel may miss at no more points than 2x the plain version (+10):
     where a limiter drains a species to rounding noise, the final
-    q < QSMALL clip goes either way in f32."""
+    q < QSMALL clip goes either way in f32. With the species common
+    (every warp mixed) and rare (most warps skip a process group)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     args = p3_part2.cast_inputs(p3_part2.sample_inputs(
-        shape, torch.float64, "cuda", seed=4), dtype)
+        shape, torch.float64, "cuda", seed=4, present=present), dtype)
     before = p3_part2.p3_part2_cuda.launches
     got = _outputs(*p3_part2.p3_part2_cuda(*args))
     torch.cuda.synchronize()

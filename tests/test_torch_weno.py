@@ -342,12 +342,15 @@ def test_build_key_changes_with_a_header(tmp_path):
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(_cuda, "SOURCE_FLAGS", {})
         assert _cuda.source_key(tmp_path / "p3_part2.cu") != with_flag
-    # the package's own sources: the header is hashed, and passed with -I
-    assert sorted(f.name for f in _cuda.CSRC.glob("*.cuh")) == ["weno5.cuh"]
+    # the package's own sources: the headers are hashed, and passed with -I
+    assert sorted(f.name for f in _cuda.CSRC.glob("*.cuh")) == [
+        "p3_tables.cuh", "weno5.cuh"]
     assert {s.name for s in _cuda._sources()} == {
         "awfl_flux.cu", "p3_part2.cu", "weno_x.cu"}
     for name in ("awfl_flux.cu", "weno_x.cu"):
         assert '#include "weno5.cuh"' in (_cuda.CSRC / name).read_text()
+    assert '#include "p3_tables.cuh"' in (
+        _cuda.CSRC / "p3_part2.cu").read_text()
 
 
 @pytest.mark.gpu
