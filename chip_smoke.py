@@ -3,7 +3,9 @@ kernels, hold each against its plain version, reproduce the golden
 trajectories through them, and run the MMF CRM step at the production
 width of inputs/input_pamc.yaml (65x1x50 cells, 128 km x 64 km x 20 km):
 SPAM+SI with Kessler microphysics and with the production P3+SHOC
-physics, and the AWFL dycore with Kessler.
+physics, and the AWFL dycore with Kessler; then the stretched-grid SPAM
+trajectory (phase 12) and the four configs/input_mmf_*.yaml through the
+run_mmf of driver/standalone.py as the files set them (phase 13).
 
 Usage (from the root of a checkout, on a machine with the card):
 
@@ -29,6 +31,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -60,6 +63,11 @@ P3_GOLDEN_TOL = {"wvel": 1e-7, "cloud_water": 5e-9, "rain": 1.1e-5,
 WENO_CALLS_PER_STEP = 6
 # AWFL flux calls per sub-cycle in 2-D: 3 SSPRK3 stages, x and z
 FLUX_CALLS_PER_CYCLE = 6
+# phase 12: configs/input_mmf_pamc.yaml cut as
+# tools/make_torch_golden_init.py::PAMC_SMALL cuts it
+PAMC_SMALL = dict(crm_nx=16, crm_nz=12, nens=2)
+# phase 13: the standalone configs, run as their files say
+MMF_CONFIGS = ("kessler", "p3", "pamc", "production")
 # what the kernels replaced: the kernels that csrc/weno_x.cu and
 # csrc/awfl_flux.cu held before they were rebuilt on csrc/weno5.cuh, and
 # P3 part 2 before csrc/p3_part2.cu ran its table stage: us per call,
@@ -473,9 +481,9 @@ def healthy(state, tag, water=WATER):
 
 def golden_run(setup_supercell_mmf, state_from_numpy, name, nsteps=10,
                **kw):
-    """nsteps f64 steps on the card from tests/golden/<name>_init.npz;
-    returns the final state."""
-    drv, _ = setup_supercell_mmf(**GOLDEN_KW, **kw, dtype=torch.float64,
+    """nsteps f64 steps on the card from tests/golden/<name>_init.npz with
+    a driver of GOLDEN_KW updated by kw; returns the final state."""
+    drv, _ = setup_supercell_mmf(**{**GOLDEN_KW, **kw}, dtype=torch.float64,
                                  device="cuda")
     init = dict(np.load(os.path.join(GOLDEN, f"{name}_init.npz")))
     state = state_from_numpy(init, "cuda", torch.float64)
@@ -527,11 +535,99 @@ def full_width(setup_supercell_mmf, gcm_forcing, counters, nens, dtype,
     return line, counts
 
 
+def records(cfg):
+    """Snapshots run_mmf writes for cfg: t=0, then at each GCM step that
+    reaches the next multiple of out_freq (its callback's rule)."""
+    n, nout, etime = 1, 0, 0.0
+    for _ in range(int(np.ceil(cfg["sim_time"] / cfg["dt_gcm"]))):
+        etime += cfg["dt_gcm"]
+        if etime >= (nout + 1) * cfg["out_freq"]:
+            n, nout = n + 1, nout + 1
+    return n
+
+
+def run_config(standalone, mmf, counters, name, tmp):
+    """configs/input_mmf_<name>.yaml through run_mmf on the card as the
+    file sets it (out_prefix in tmp; the production file writes no output,
+    out_freq -1, and here writes at t=0 and at its end), with every
+    counter set to 0 just before; checks the state, the launch counts and
+    the NetCDF file; returns (printable summary, counts)."""
+    from scipy.io import netcdf_file
+    cfg = standalone.load_config(os.path.join(ROOT, "configs",
+                                              f"input_mmf_{name}.yaml"))
+    cfg["out_prefix"] = os.path.join(tmp, name)
+    if cfg["out_freq"] < 0:
+        cfg["out_freq"] = float(cfg["sim_time"])
+    ms = []
+    step = mmf.MmfDriver.crm_phys_step
+
+    def timed_step(self, state):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = step(self, state)
+        end.record()
+        ms.append((start, end))
+        return out
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for obj, attr in counters.values():
+        setattr(obj, attr, 0)
+    mmf.MmfDriver.crm_phys_step = timed_step
+    try:
+        t0 = time.perf_counter()
+        state = standalone.run_mmf(cfg, verbose=False, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        mmf.MmfDriver.crm_phys_step = step
+    counts = {k: getattr(obj, attr) for k, (obj, attr) in counters.items()}
+    ms = [a.elapsed_time(b) for a, b in ms]
+    f64 = cfg.get("f64", True)
+    dycore = cfg.get("dycore", "awfl")
+    p3 = cfg.get("micro") == "p3"
+    tag = f"{name} nens {cfg['nens']} {'f64' if f64 else 'f32'} {dycore}"
+    nsteps = int(np.ceil(cfg["sim_time"] / cfg["dt_gcm"])) * int(
+        round(cfg["dt_gcm"] / cfg["dt_crm_phys"]))
+    check(len(ms) == nsteps, f"{tag}: {len(ms)} CRM steps, not {nsteps}")
+    wmax = healthy(state, tag, tuple(k for k in (P3_WATER if p3 else WATER)
+                                     if k in state))
+    want = {"weno_x": WENO_CALLS_PER_STEP * nsteps if dycore == "spam"
+            else 0,
+            "p3_part2": nsteps if p3 else 0,
+            "awfl_flux": FLUX_CALLS_PER_CYCLE * counts["sub_cycles"]}
+    check(all(counts[k] == v for k, v in want.items())
+          and (dycore == "spam") == (counts["sub_cycles"] == 0),
+          f"{tag}: launches {counts}, expected {want}")
+    zint = standalone.build_zint(cfg).astype(np.float64 if f64
+                                             else np.float32)
+    with netcdf_file(cfg["out_prefix"] + ".nc", "r", mmap=False) as f:
+        nrec = f.variables["t"].shape[0]
+        check(nrec == records(cfg) and f.dimensions["nens"] == cfg["nens"]
+              and np.array_equal(f.variables["zint"][:],
+                                 np.repeat(zint[:, None], cfg["nens"], 1)),
+              f"{tag}: NetCDF file has {nrec} records, nens "
+              f"{f.dimensions['nens']}, or another zint")
+        size = os.path.getsize(cfg["out_prefix"] + ".nc")
+    line = (f"{tag}: {nsteps} CRM steps in {wall:.2f} s, ms/step (CUDA "
+            f"events) first {ms[0]:.2f} mean {np.mean(ms[1:]):.2f} median "
+            f"{np.median(ms[1:]):.2f}, peak mem "
+            f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB, "
+            f"|w|max {wmax:.3f} m/s, {nrec} records "
+            f"{size / 2**20:.1f} MiB, counts "
+            + ", ".join(f"{k} {v}" for k, v in counts.items()))
+    if dycore == "awfl":
+        line += f", {counts['sub_cycles'] / nsteps:.1f} sub-cycles per step"
+    del state
+    return line, counts
+
+
 def main():
     # 1. environment: a card and the package, before anything is printed
     check(torch.cuda.is_available(), "torch.cuda.is_available() is false")
     from pam_tpu_torch import _cuda
     from pam_tpu_torch.convert import state_from_numpy
+    from pam_tpu_torch.driver import mmf, standalone
     from pam_tpu_torch.driver.mmf import setup_supercell_mmf
     from pam_tpu_torch.modules import gcm_forcing
     from pam_tpu_torch.dycore.awfl import AwflDycore
@@ -573,7 +669,7 @@ def main():
     # 4. Kessler golden trajectory on the card, f64, through the kernel
     weno_x.weno_edges_x_cuda.launches = 0
     state = golden_run(setup_supercell_mmf, state_from_numpy,
-                       "kessler_spam_si")
+                       "kessler_spam_si", dycore="spam")
     check(weno_x.weno_edges_x_cuda.launches == 10 * WENO_CALLS_PER_STEP,
           "golden run did not go through the kernel")
     gerr = golden_errors(state, "kessler_spam_si", {})
@@ -615,7 +711,8 @@ def main():
     for obj, attr in (weno_count, b4_count, sed_count):
         setattr(obj, attr, 0)
     state = golden_run(setup_supercell_mmf, state_from_numpy,
-                       "p3_shoc_spam_si", micro="p3", sgs="shoc")
+                       "p3_shoc_spam_si", micro="p3", sgs="shoc",
+                       dycore="spam")
     check(p3_part2.p3_part2_cuda.launches == 10
           and weno_x.weno_edges_x_cuda.launches == 10 * WENO_CALLS_PER_STEP,
           f"P3+SHOC golden run: {p3_part2.p3_part2_cuda.launches} B4 and "
@@ -698,6 +795,45 @@ def main():
         print(f"phase 11 AWFL+Kessler {line}, per step "
               f"{counts['sub_cycles'] / nsteps:.1f} sub-cycles "
               f"{counts['awfl_flux'] / nsteps:.1f} B3 launches", flush=True)
+
+    # 12. the stretched-grid SPAM trajectory on the card, f64, through B1:
+    #     configs/input_mmf_pamc.yaml cut to 16x1x12 nens 2 on its own
+    #     build_zint levels (half cells at the bottom and the top), 10
+    #     steps against pam_tpu's jitted and op-by-op runs
+    cfg = standalone.load_config(os.path.join(ROOT, "configs",
+                                              "input_mmf_pamc.yaml"))
+    cfg.update(PAMC_SMALL)
+    drv, _ = setup_supercell_mmf(**standalone.mmf_setup_kwargs(cfg, "cuda"))
+    check(drv.dycore.tend.vert_per_level() is not None,
+          "phase 12: the pamc levels read as uniform")
+    state = state_from_numpy(dict(np.load(os.path.join(
+        GOLDEN, "mmf_pamc_small_init.npz"))), "cuda", torch.float64)
+    weno_x.weno_edges_x_cuda.launches = 0
+    for _ in range(10):
+        state = drv.crm_phys_step(state)
+    check(weno_x.weno_edges_x_cuda.launches == 10 * WENO_CALLS_PER_STEP,
+          f"phase 12: {weno_x.weno_edges_x_cuda.launches} x-WENO launches")
+    gerr = golden_errors(state, "mmf_pamc_small", {})
+    operr = golden_errors(state, "mmf_pamc_small_opbyop", {})
+    print(f"phase 12 stretched SPAM f64 10 steps, "
+          f"{weno_x.weno_edges_x_cuda.launches} x-WENO launches: max rel err "
+          "vs pam_tpu jitted " + ", ".join(f"{k} {e:.2e}"
+                                            for k, e in gerr.items()) +
+          "; vs op by op " + ", ".join(f"{k} {e:.2e}"
+                                       for k, e in operr.items()),
+          flush=True)
+    del drv, state
+
+    # 13. the four standalone configs through run_mmf at 65x1x50, each as
+    #     its file sets it (nens, dtype, dycore, physics, 2 GCM steps of
+    #     45 CRM steps), each with the counters at 0 just before it
+    with tempfile.TemporaryDirectory() as tmp:
+        for name in MMF_CONFIGS:
+            line, _ = run_config(
+                standalone, mmf,
+                {"weno_x": weno_count, "p3_part2": b4_count,
+                 "awfl_flux": b3_count, "sub_cycles": cycle_count}, name, tmp)
+            print(f"phase 13 run_mmf {line}", flush=True)
 
     # the kernels' record: float32 times at the main path's shapes (B4
     # with cloud, rain and ice each at half of the points); no single

@@ -21,6 +21,14 @@ def state_from_numpy(state: dict[str, np.ndarray], device,
             for k, v in state.items()}
 
 
+def host_array(a) -> np.ndarray:
+    """A tensor (on any device) or an array as a numpy array on the host,
+    in its own dtype."""
+    if isinstance(a, torch.Tensor):
+        return a.detach().cpu().numpy()
+    return np.asarray(a)
+
+
 def state_to_numpy(state: dict[str, torch.Tensor]) -> dict[str, np.ndarray]:
     """Every leaf as a numpy array on the host, in its own dtype."""
-    return {k: v.detach().cpu().numpy() for k, v in state.items()}
+    return {k: host_array(v) for k, v in state.items()}

@@ -105,9 +105,18 @@ class Coupler:
         opts.update(kw)
         return dataclasses.replace(self, options=opts)
 
+    def get_option(self, key: str, default=None):
+        return self.options.get(key, default)
+
     # ---- state construction ----
     def _zeros(self, *shape):
         return torch.zeros(shape, dtype=self.dtype, device=self.device)
+
+    def zeros3d(self) -> torch.Tensor:
+        return self._zeros(self.nens, self.nz, self.ny, self.nx)
+
+    def zeros_col(self, stag: bool = False) -> torch.Tensor:
+        return self._zeros(self.nens, self.nz + (1 if stag else 0))
 
     def allocate_state(self, zint) -> dict[str, torch.Tensor]:
         """Canonical initial state dict (ref: allocate_coupler_state,
@@ -120,18 +129,18 @@ class Coupler:
             zint = zint.expand(self.nens, self.nz + 1)
         state: dict[str, torch.Tensor] = {}
         for name in STATE_3D + self.tracer_names:
-            state[name] = self._zeros(self.nens, self.nz, self.ny, self.nx)
+            state[name] = self.zeros3d()
         state["vertical_interface_height"] = zint
         state["vertical_cell_dz"] = zint[:, 1:] - zint[:, :-1]
         state["vertical_midpoint_height"] = 0.5 * (zint[:, 1:] + zint[:, :-1])
         for name in GCM_COLS + REF_COLS:
-            state[name] = self._zeros(self.nens, self.nz)
-        state["ref_presi"] = self._zeros(self.nens, self.nz + 1)
-        state["gcm_pressure_int"] = self._zeros(self.nens, self.nz + 1)
+            state[name] = self.zeros_col()
+        state["ref_presi"] = self.zeros_col(stag=True)
+        state["gcm_pressure_int"] = self.zeros_col(stag=True)
         # hydrostatic background columns of the AWFL dycore (Dycore.h:868)
         for name in ("hy_dens_cells", "hy_pressure_cells",
                      "variable_gravity"):
-            state[name] = self._zeros(self.nens, self.nz)
+            state[name] = self.zeros_col()
         return state
 
     def pressure(self, state) -> torch.Tensor:

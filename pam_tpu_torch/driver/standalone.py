@@ -1,0 +1,231 @@
+"""Standalone driver: configured MMF runs, as the mmf_simplified executable
+runs them (port of pam_tpu/driver/standalone.py:24-125 and :432-449; ref
+standalone/mmf_simplified/driver.cpp).
+
+The config keys (sim_time, crm_nx/ny/nz, nens, xlen/ylen/zlen, vcoords,
+dt_gcm, dt_crm_phys, crm_per_phys, out_freq, out_prefix, io_backend,
+micro, sgs, dycore, f64, ens_chunk) are those of configs/input_mmf_*.yaml,
+the names the reference's YAML inputs use. ``ens_chunk`` is checked as
+pam_tpu checks it and then not used: pam_tpu runs a large ensemble in
+micro-batches, the port runs the whole ensemble as one program, and the
+two give the same result.
+
+Run:  python -m pam_tpu_torch.driver.standalone <config.yaml>
+
+on the card; ``run_mmf(cfg, device="cpu")`` runs on the CPU.
+"""
+
+from __future__ import annotations
+
+import re
+import sys
+import time
+
+import numpy as np
+import torch
+
+# YAML 1.1 plain scalars as PyYAML's safe loader resolves them (its
+# implicit resolvers, yaml/resolver.py), restricted to the forms this
+# parser converts; an int or float written another way raises
+_BOOL = {**dict.fromkeys(("yes", "Yes", "YES", "true", "True", "TRUE",
+                          "on", "On", "ON"), True),
+         **dict.fromkeys(("no", "No", "NO", "false", "False", "FALSE",
+                          "off", "Off", "OFF"), False)}
+_NULL = ("", "~", "null", "Null", "NULL")
+_INT = re.compile(r"[-+]?(?:0|[1-9][0-9_]*)")
+_FLOAT = re.compile(r"[-+]?[0-9][0-9_]*\.[0-9_]*(?:[eE][-+][0-9]+)?"
+                    r"|\.[0-9][0-9_]*(?:[eE][-+][0-9]+)?")
+_SPECIAL_FLOAT = re.compile(r"[-+]?\.(?:inf|Inf|INF)|\.(?:nan|NaN|NAN)")
+# what PyYAML reads as an int or float in a form not converted here
+# (binary, octal, hex, base 60)
+_OTHER_NUMBER = re.compile(r"[-+]?(?:0b[0-1_]+|0[0-7_]+|0x[0-9a-fA-F_]+|"
+                           r"[0-9][0-9_]*(?::[0-5]?[0-9])+(?:\.[0-9_]*)?)")
+_KEY = re.compile(r"[A-Za-z_][A-Za-z0-9_]*")
+
+
+def _scalar(text: str, where: str):
+    """A plain or quoted YAML scalar -> bool, int, float, None or str."""
+    if text[:1] in ("'", '"'):
+        q = text[0]
+        if len(text) < 2 or text[-1] != q or q in text[1:-1] or \
+                (q == '"' and "\\" in text):
+            raise ValueError(f"{where}: unsupported quoted scalar {text!r}")
+        return text[1:-1]
+    if text in _BOOL:
+        return _BOOL[text]
+    if text in _NULL:
+        return None
+    if _INT.fullmatch(text):
+        return int(text.replace("_", ""))
+    if _FLOAT.fullmatch(text):
+        return float(text.replace("_", ""))
+    if _SPECIAL_FLOAT.fullmatch(text):
+        return float(text.lower().replace(".", ""))
+    if _OTHER_NUMBER.fullmatch(text):
+        raise ValueError(f"{where}: number form {text!r} is not supported")
+    if text[0] in "[]{}&*!|>%@`?,#" or text == "-" or \
+            text.startswith("- "):
+        raise ValueError(f"{where}: {text!r} is not a flat scalar (no "
+                         "lists, mappings, anchors, tags or block scalars)")
+    if ": " in text or text.endswith(":"):
+        raise ValueError(f"{where}: nested mapping {text!r}")
+    return text
+
+
+def load_config(path: str) -> dict:
+    """The flat ``key: scalar`` mapping of a config file, equal to what
+    ``yaml.safe_load`` returns for it (comments, ints, floats such as
+    ``20.`` and ``-1.``, booleans, null and strings), with no PyYAML.
+    Nesting, lists, flow collections, anchors, tags, block scalars,
+    multiple documents and duplicate keys raise ValueError."""
+    cfg = {}
+    with open(path) as f:
+        lines = f.read().splitlines()
+    for n, raw in enumerate(lines, 1):
+        where = f"{path}:{n}"
+        line = raw.rstrip()
+        if "\t" in line:
+            raise ValueError(f"{where}: tabs are not supported")
+        if not line.strip() or line.lstrip().startswith("#"):
+            continue
+        if line[0] == " ":
+            raise ValueError(f"{where}: indented line (nesting is not "
+                             "supported)")
+        if line.startswith(("---", "...", "%")):
+            raise ValueError(f"{where}: document markers and directives "
+                             "are not supported")
+        key, sep, rest = line.partition(":")
+        if not sep or not _KEY.fullmatch(key):
+            raise ValueError(f"{where}: expected 'key: value', got {raw!r}")
+        if rest and rest[0] != " ":
+            raise ValueError(f"{where}: expected a space after ':'")
+        value = rest.strip()
+        if value.startswith("#"):
+            value = ""
+        elif value[:1] not in ("'", '"'):
+            # a comment starts at " #" (YAML: # after whitespace)
+            m = re.search(r"\s#", value)
+            if m:
+                value = value[:m.start()].rstrip()
+        else:
+            end = value.find(value[0], 1)
+            tail = value[end + 1:].strip() if end > 0 else ""
+            if tail and not tail.startswith("#"):
+                raise ValueError(f"{where}: text after a quoted scalar")
+            value = value[:end + 1] if end > 0 else value
+        if value == "":
+            nxt = next((l for l in lines[n:] if l.strip()
+                        and not l.lstrip().startswith("#")), "")
+            if nxt[:1] in (" ", "-"):
+                raise ValueError(f"{where}: nested block under {key!r}")
+        if key in cfg:
+            raise ValueError(f"{where}: duplicate key {key!r}")
+        cfg[key] = _scalar(value, where)
+    return cfg
+
+
+def build_zint(cfg) -> np.ndarray:
+    """Vertical interface heights: "uniform" (driver.cpp:137-155, whose
+    first and last cells are half cells) or from a NetCDF vcoords file
+    (pam_tpu/driver/standalone.py:30-45)."""
+    vcoords = cfg.get("vcoords", "uniform")
+    if vcoords == "uniform":
+        crm_nz = cfg["crm_nz"]
+        zlen = cfg.get("zlen", 20000.0)
+        dz = zlen / (crm_nz - 1)
+        zint = np.empty(crm_nz + 1)
+        zint[0] = 0.0
+        zint[-1] = zlen
+        zint[1:-1] = np.arange(1, crm_nz) * dz - dz / 2
+        return zint
+    from scipy.io import netcdf_file
+    with netcdf_file(vcoords, "r") as f:
+        return np.array(f.variables["vertical_interfaces"][:])
+
+
+def check_ens_chunk(cfg, nens: int):
+    """Refuse an ``ens_chunk`` that pam_tpu refuses: "auto", or a divisor
+    of nens (pam_tpu/driver/standalone.py:75-83). The port runs the whole
+    ensemble in one program whatever it says."""
+    chunk = cfg.get("ens_chunk")
+    if chunk and chunk != "auto" and nens % int(chunk) != 0:
+        raise ValueError(f"ens_chunk={int(chunk)} must divide nens={nens}")
+
+
+def mmf_setup_kwargs(cfg: dict, device="cuda") -> dict:
+    """The arguments of driver/mmf.py::setup_supercell_mmf for config
+    ``cfg``, as pam_tpu's run_mmf passes them
+    (pam_tpu/driver/standalone.py:55-70), on ``device``."""
+    zint = build_zint(cfg)
+    return dict(
+        nx=cfg["crm_nx"], ny=cfg.get("crm_ny", 1), nz=len(zint) - 1,
+        nens=cfg.get("nens", 1), xlen=cfg["xlen"],
+        ylen=cfg.get("ylen", 64000.0), zlen=float(zint[-1]),
+        micro=cfg.get("micro", "kessler"), sgs=cfg.get("sgs", "none"),
+        dt_gcm=cfg.get("dt_gcm", cfg["sim_time"]),
+        dt_crm_phys=cfg["dt_crm_phys"], dycore=cfg.get("dycore", "awfl"),
+        crm_per_phys=cfg.get("crm_per_phys", 1), zint=zint,
+        dtype=torch.float64 if cfg.get("f64", True) else torch.float32,
+        device=device)
+
+
+def run_mmf(cfg: dict, verbose: bool = True, device="cuda"):
+    """MMF (supercell column, GCM-forced) run, the non-idealized branch of
+    driver.cpp:221-272, on ``device``; returns the final state. Writes
+    ``<out_prefix>.nc`` (or ``.h5`` with io_backend hdf5) at t=0 and every
+    out_freq seconds of simulated time when out_freq >= 0."""
+    from .mmf import setup_supercell_mmf
+    from ..io.output import make_writer
+
+    if cfg.get("idealized", False) or cfg.get("mode") == "idealized":
+        raise NotImplementedError(
+            "idealized runs are not ported yet (ROADMAP queue A: the rest "
+            "of the x-z SPAM, run_idealized)")
+    kw = mmf_setup_kwargs(cfg, device)
+    check_ens_chunk(cfg, kw["nens"])
+    drv, state = setup_supercell_mmf(**kw)
+    out_freq = cfg.get("out_freq", -1.0)
+    writer = None
+    if out_freq >= 0:
+        writer = make_writer(drv.coupler, state, cfg.get("out_prefix", "out"),
+                             cfg.get("io_backend", "netcdf"))
+        writer.write(state, 0.0)
+
+    t0 = time.time()
+    nout = [0]
+
+    def cb(s, etime):
+        # multiplication, not division: out_freq == 0 means "write every
+        # callback" (the reference's C++ float division yields inf and
+        # never writes again; every step is the useful reading of 0)
+        if writer is not None and etime >= (nout[0] + 1) * out_freq:
+            writer.write(s, etime)
+            nout[0] += 1
+        if verbose:
+            maxw = float(s["wvel"].abs().max())
+            print(f"Etime , dtphys, maxw: {etime} , "
+                  f"{drv.dt_crm_phys} , {maxw:10.5f}", flush=True)
+
+    try:
+        state = drv.run(state, cfg["sim_time"], cb)
+    finally:
+        if writer is not None:
+            writer.close()
+    if verbose:
+        print(f"Simulation Time: {cfg['sim_time']}")
+        print(f"Run Time: {time.time() - t0}")
+    return state
+
+
+def main(argv=None):
+    argv = sys.argv[1:] if argv is None else argv
+    if not argv:
+        print("usage: python -m pam_tpu_torch.driver.standalone "
+              "<config.yaml>")
+        return 1
+    run_mmf(load_config(argv[0]))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

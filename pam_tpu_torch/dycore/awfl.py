@@ -119,6 +119,10 @@ class AwflDycore:
     def hs(self) -> int:
         return (self.ord + 1) // 2
 
+    @property
+    def name(self) -> str:
+        return "SSPRK3+WENO+FV A-grid"  # ref: Dycore.h:1544
+
     # ---------------------------------------------------- coupler conversions
     def _adds_mass(self, tracers):
         """Sum of the tracers that add mass, (nens, ...)."""

@@ -1,11 +1,9 @@
 """Polynomial reconstruction matrices for finite-volume WENO schemes.
 
-Numpy-only copy of pam_tpu/ops/recon_matrices.py without
-``mirror_recon_matrices`` (the mirror-halo matrices of SPAM's stretched
-grids, not ported yet). Every matrix is derived from first principles
-with numpy at setup time, for uniform and stretched grids alike, matching
-the reference's generated tables (dynamics/awfl/TransformMatrices.h,
-TransformMatrices_variable.h).
+Numpy-only copy of pam_tpu/ops/recon_matrices.py. Every matrix is
+derived from first principles with numpy at setup time, for uniform and
+stretched grids alike, matching the reference's generated tables
+(dynamics/awfl/TransformMatrices.h, TransformMatrices_variable.h).
 
 Conventions: coordinates normalized by the central cell width, the
 central cell spanning [-1/2, +1/2]; ``sten_to_coefs`` maps ord cell
@@ -100,11 +98,12 @@ def weno_lower_sten_to_coefs(locs_or_ord) -> np.ndarray:
 
 
 @functools.cache
-def tv_quadform(ord: int) -> np.ndarray:
+def tv_quadform(ord: int, truncate: bool = True) -> np.ndarray:
     """(ord, ord) symmetric matrix: beta(a) = a @ M @ a is the Jiang-Shu
-    smoothness indicator sum_{n>=1} int_{-1/2}^{1/2} (p^(n))^2 dx, with
-    product terms of monomial power above ``ord`` dropped, matching the
-    dycore's generated formulas (TransformMatrices.h coefs_to_tv)."""
+    smoothness indicator sum_{n>=1} int_{-1/2}^{1/2} (p^(n))^2 dx. With
+    ``truncate`` product terms of monomial power above ``ord`` are dropped,
+    matching the dycore's generated formulas (TransformMatrices.h
+    coefs_to_tv); core/vinterp.py uses the full indicator."""
     M = np.zeros((ord, ord))
     for n in range(1, ord):
         # d^n/dx^n x^s = s!/(s-n)! x^(s-n)  for s >= n
@@ -113,7 +112,7 @@ def tv_quadform(ord: int) -> np.ndarray:
             for s2 in range(n, ord):
                 c2 = math.factorial(s2) / math.factorial(s2 - n)
                 p = s1 + s2 - 2 * n  # power of the product
-                if p > ord:
+                if truncate and p > ord:
                     continue  # reference truncation of high-power terms
                 # integral of x^p over [-1/2, 1/2]
                 integ = 0.0 if p % 2 == 1 else (0.5 ** p) / (p + 1)
@@ -144,6 +143,43 @@ def weno_ideal_weights(ord: int) -> tuple[np.ndarray, float]:
         idl = np.ones(hs + 2)
     idl = idl / idl.sum()
     return idl, sigma
+
+
+def mirror_recon_matrices(dz: np.ndarray, ord: int,
+                          iface: bool = False) -> tuple[np.ndarray, np.ndarray]:
+    """Per-cell variable-grid reconstruction matrices for a column with
+    MIRROR halos (the SPAM extruded grid, exchange.h:565-606): the stencil
+    for cell k uses cells k-hs..k+hs with thicknesses reflected at the
+    boundaries (pam_tpu/ops/recon_matrices.py:194-233; ref
+    weno_func_recon_variable.h + TransformMatrices_variable.h).
+
+    dz: (nz,) or (nens, nz) cell thicknesses of the recon grid. iface: the
+    mirror rule, False = layer rule (halo(-1-m) = dz(m)), True = interface
+    rule (halo(-1-m) = dz(m+1)). Returns (s2c, wrl) of shapes
+    (..., nz, ord, ord) and (..., nz, nsub, nsub, nsub)."""
+    dz = np.asarray(dz, dtype=np.float64)
+    squeeze = dz.ndim == 1
+    if squeeze:
+        dz = dz[None, :]
+    nens, nz = dz.shape
+    nsub = (ord + 1) // 2
+    half = ord // 2
+    off = 1 if iface else 0
+    pad_lo = dz[:, off:off + half][:, ::-1]
+    pad_hi = dz[:, nz - half - off:nz - off][:, ::-1]
+    dzm = np.concatenate([pad_lo, dz, pad_hi], axis=1)  # (nens, nz+2*half)
+    s2c = np.empty((nens, nz, ord, ord))
+    wrl = np.empty((nens, nz, nsub, nsub, nsub))
+    for e in range(nens):
+        for k in range(nz):
+            dzloc = dzm[e, k:k + ord] / dzm[e, k + half]
+            locs = np.concatenate(([0.0], np.cumsum(dzloc)))
+            locs -= 0.5 * (locs[half] + locs[half + 1])
+            s2c[e, k] = sten_to_coefs(locs)
+            wrl[e, k] = weno_lower_sten_to_coefs(locs)
+    if squeeze:
+        return s2c[0], wrl[0]
+    return s2c, wrl
 
 
 def vertical_recon_matrices(dz: np.ndarray,

@@ -160,7 +160,7 @@ def cfv_coefs_list(u, s2c):
     """Centered finite-volume coefficients: the full-order map with no
     limiting (operators/cfv_recon.h, RECONSTRUCTION_TYPE::CFV)."""
     ord = len(u)
-    return [_msum([float(s2c[c, s]) * u[s] for s in range(ord)])
+    return [_msum([_entry(s2c, (c, s)) * u[s] for s in range(ord)])
             for c in range(ord)]
 
 

@@ -11,7 +11,6 @@ the host once per step to drive the Python loop.
 from __future__ import annotations
 
 import dataclasses
-import math
 
 import torch
 
@@ -63,13 +62,16 @@ def kessler_column(theta, qv, qc, qr, rho, z, exner, dt, c: Constants):
     pc = 3.8 / (exner ** (cp / Rd) * psl)
     velqr = _terminal_velocity(qr, r, rhalf)
 
-    # global CFL-limited sub-step over the whole batch (:372-390)
+    # global CFL-limited sub-step over the whole batch (:372-390), in the
+    # state's dtype as pam_tpu computes it (in float32 a dt / dt_max next
+    # to an integer rounds there, not in double)
     dz_up = z[1:] - z[:-1]
-    dt2d = torch.where(velqr[:-1] > 1.0e-10, 0.8 * dz_up / velqr[:-1],
-                       torch.full_like(velqr[:-1], dt))
-    dt_max = min(float(comm.pmin_h(dt2d)), dt)   # the one host sync
-    rainsplit = math.ceil(dt / dt_max)
-    dt0 = dt / rainsplit
+    dt_t = torch.full((), dt, dtype=theta.dtype, device=theta.device)
+    dt2d = torch.where(velqr[:-1] > 1.0e-10, 0.8 * dz_up / velqr[:-1], dt_t)
+    dt_max = torch.minimum(comm.pmin_h(dt2d), dt_t)
+    rainsplit = int(torch.ceil(dt_t / dt_max))   # the one host sync
+    kessler_column.rainsplit = rainsplit
+    dt0 = dt_t / rainsplit
 
     precl = torch.zeros_like(theta[0])
     for _ in range(rainsplit):
@@ -102,6 +104,9 @@ def kessler_column(theta, qv, qc, qr, rho, z, exner, dt, c: Constants):
         qr = qr - ern
         velqr = _terminal_velocity(qr, r, rhalf)
     return theta, qv, qc, qr, precl / rainsplit
+
+
+kessler_column.rainsplit = 0   # the trip count of the last call
 
 
 @dataclasses.dataclass(frozen=True, eq=False)

@@ -3,7 +3,9 @@ interpreter where importing either fails, the package imports and one
 full crm_phys_step runs at a tiny size, with Kessler and with P3+SHOC
 (whose lookup table is the port's own copy) under SPAM, and with Kessler
 under the AWFL dycore; the AWFL thermal bubble takes a step through
-AwflDycore alone."""
+AwflDycore alone; run_mmf of driver/standalone.py runs a tiny Kessler
+config from configs/input_mmf_kessler.yaml and writes its NetCDF file;
+the modules of the standalone slice import."""
 
 import os
 import subprocess
@@ -47,6 +49,24 @@ state = awfl_init.init_thermal(cpl, cpl.allocate_state(zint))
 state = AwflDycore.build(cpl, np.diff(zint)).timestep(state, 5.0)
 assert float(state["wvel"].max()) > 0.0
 assert awfl_flux.flux_direction_cuda.launches == 0
+import os, tempfile
+from pam_tpu_torch.core import profiles, vinterp
+from pam_tpu_torch.driver import standalone
+from pam_tpu_torch.io import output
+from pam_tpu_torch.modules import averaging, broadcast, surface_friction
+from pam_tpu_torch.ops import banded, recon_matrices
+from pam_tpu_torch.physics import radiation
+from pam_tpu_torch.utils import (checkpoint, convert_output, observe,
+                                 vertical_levels)
+cfg = standalone.load_config("configs/input_mmf_kessler.yaml")
+with tempfile.TemporaryDirectory() as tmp:
+    cfg.update(crm_nx=8, crm_nz=8, nens=1, dt_gcm=20, sim_time=20,
+               out_freq=20.0, out_prefix=os.path.join(tmp, "k"))
+    state = standalone.run_mmf(cfg, verbose=False, device="cpu")
+    from scipy.io import netcdf_file
+    with netcdf_file(os.path.join(tmp, "k.nc"), "r", mmap=False) as f:
+        assert f.variables["t"].shape == (2,)
+assert all(bool(torch.isfinite(v).all()) for v in state.values())
 loaded = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
           or m == "pam_tpu" or m.startswith("pam_tpu.")]
 assert all(sys.modules[m] is None for m in loaded), loaded

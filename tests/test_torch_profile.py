@@ -35,7 +35,8 @@ def test_union_us(intervals, total):
 def test_step_emits_layer_spans():
     drv, state = setup_supercell_mmf(
         nx=8, ny=1, nz=8, nens=1, xlen=16000.0, ylen=64000.0, zlen=16000.0,
-        dt_gcm=40.0, dt_crm_phys=20.0, dtype=torch.float64, device="cpu")
+        dt_gcm=40.0, dt_crm_phys=20.0, dtype=torch.float64, device="cpu",
+        dycore="spam")
     state = gcm_forcing.compute_gcm_forcing_tendencies(drv.coupler, state,
                                                        40.0)
     with profile(activities=[ProfilerActivity.CPU]) as prof:
@@ -60,7 +61,7 @@ def test_p3_shoc_step_emits_the_sgs_span():
     drv, state = setup_supercell_mmf(
         nx=8, ny=1, nz=8, nens=1, xlen=16000.0, ylen=64000.0, zlen=16000.0,
         dt_gcm=40.0, dt_crm_phys=20.0, dtype=torch.float64, device="cpu",
-        micro="p3", sgs="shoc")
+        micro="p3", sgs="shoc", dycore="spam")
     state = gcm_forcing.compute_gcm_forcing_tendencies(drv.coupler, state,
                                                        40.0)
     with profile(activities=[ProfilerActivity.CPU]) as prof:

@@ -17,12 +17,19 @@
 * tests/golden/awfl_kessler.npz and awfl_kessler_opbyop.npz: the fields
   after 5 CRM steps of the awfl_kessler config, run by pam_tpu as one
   jitted step and op by op. AWFL takes 6 SSPRK3 sub-cycles per step
-  here, so the two differ by the rounding of 90 tendency evaluations.
+  here, so the two differ by the rounding of 90 tendency evaluations;
+* mmf_pamc_small: configs/input_mmf_pamc.yaml (SPAM+SI, Kessler) cut to
+  16x1x12 cells and 2 members (PAMC_SMALL), on the config's own
+  build_zint levels, whose first and last cells are half cells: its
+  _init file and 10 CRM steps run jitted (mmf_pamc_small.npz) and op by
+  op (mmf_pamc_small_opbyop.npz) — the stretched-grid SPAM trajectory.
 
-tests/test_torch_mmf.py and tests/test_torch_awfl.py rebuild the _init
-files and check them unchanged.
+tests/test_torch_mmf.py, tests/test_torch_awfl.py and
+tests/test_torch_standalone.py rebuild the _init files and check them
+unchanged.
 
-Usage: python tools/make_torch_golden_init.py
+Usage: python tools/make_torch_golden_init.py [name ...]
+(every config when no name is given)
 """
 
 import os
@@ -35,8 +42,28 @@ GOLDEN = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "tests", "golden")
 CONFIGS = {"kessler_spam_si": ("kessler", "none", "spam"),
            "p3_shoc_spam_si": ("p3", "shoc", "spam"),
-           "awfl_kessler": ("kessler", "none", "awfl")}
+           "awfl_kessler": ("kessler", "none", "awfl"),
+           "mmf_pamc_small": ("kessler", "none", "spam")}
 AWFL_NSTEPS = 5
+PAMC_SMALL = dict(crm_nx=16, crm_nz=12, nens=2)
+# the trajectories: (config, CRM steps, op by op)
+TRAJECTORIES = (("p3_shoc_spam_si", 10, True),
+                ("awfl_kessler", AWFL_NSTEPS, False),
+                ("awfl_kessler", AWFL_NSTEPS, True),
+                ("mmf_pamc_small", 10, False),
+                ("mmf_pamc_small", 10, True))
+
+
+def pamc_small_kwargs(device="cpu"):
+    """setup_supercell_mmf arguments of mmf_pamc_small for the port
+    (pam_tpu_torch.driver.standalone.mmf_setup_kwargs of the cut config,
+    which tests/test_torch_standalone.py holds equal to pam_tpu's
+    run_mmf)."""
+    from pam_tpu_torch.driver.standalone import load_config, mmf_setup_kwargs
+    cfg = load_config(os.path.join(os.path.dirname(GOLDEN), "..", "configs",
+                                   "input_mmf_pamc.yaml"))
+    cfg.update(PAMC_SMALL)
+    return mmf_setup_kwargs(cfg, device)
 
 
 def path(name="kessler_spam_si"):
@@ -47,6 +74,10 @@ def _setup(name):
     """The setup call of tools/make_golden.py:40-45 for config ``name``."""
     import jax.numpy as jnp
     from pam_tpu.driver.mmf import setup_supercell_mmf
+    if name == "mmf_pamc_small":
+        kw = pamc_small_kwargs()
+        del kw["device"]
+        return setup_supercell_mmf(**dict(kw, dtype=jnp.float64))
     micro, sgs, dycore = CONFIGS[name]
     return setup_supercell_mmf(
         nx=16, ny=1, nz=12, nens=2, xlen=32000.0, ylen=64000.0,
@@ -90,17 +121,18 @@ def trajectory(name, nsteps, opbyop):
     return {k: np.asarray(state[k]) for k in FIELDS + extra}
 
 
-def main():
+def main(argv=None):
     import numpy as np
     import jax
     jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_enable_x64", True)
-    for name in CONFIGS:
+    names = (sys.argv[1:] if argv is None else argv) or list(CONFIGS)
+    for name in names:
         np.savez_compressed(path(name), **initial_state(name))
         print(f"wrote {path(name)}")
-    for name, nsteps, opbyop in (("p3_shoc_spam_si", 10, True),
-                                 ("awfl_kessler", AWFL_NSTEPS, False),
-                                 ("awfl_kessler", AWFL_NSTEPS, True)):
+    for name, nsteps, opbyop in TRAJECTORIES:
+        if name not in names:
+            continue
         np.savez_compressed(out_path(name, opbyop),
                             **trajectory(name, nsteps, opbyop))
         print(f"wrote {out_path(name, opbyop)}")
