@@ -4,8 +4,11 @@ trajectories through them, and run the MMF CRM step at the production
 width of inputs/input_pamc.yaml (65x1x50 cells, 128 km x 64 km x 20 km):
 SPAM+SI with Kessler microphysics and with the production P3+SHOC
 physics, and the AWFL dycore with Kessler; then the stretched-grid SPAM
-trajectory (phase 12) and the four configs/input_mmf_*.yaml through the
-run_mmf of driver/standalone.py as the files set them (phase 13).
+trajectory (phase 12), the four configs/input_mmf_*.yaml through the
+run_mmf of driver/standalone.py as the files set them (phase 13), and the
+idealized x-z SPAM runs through its run_idealized (phase 14): the three
+idealized golden trajectories (14a) and the seven x-z
+configs/input_<case>.yaml at their files' grids (14b).
 
 Usage (from the root of a checkout, on a machine with the card):
 
@@ -68,6 +71,18 @@ FLUX_CALLS_PER_CYCLE = 6
 PAMC_SMALL = dict(crm_nx=16, crm_nz=12, nens=2)
 # phase 13: the standalone configs, run as their files say
 MMF_CONFIGS = ("kessler", "p3", "pamc", "production")
+# phase 14b: the x-z idealized configs and their cuts: None runs the
+# file's sim_time, a number that many steps; "acoustic" drops the file's
+# dtcrm, which under SSPRK3 is above the acoustic limit (ROADMAP,
+# deviations of the reference), for run_idealized's acoustic rule
+IDEAL_CONFIGS = (("gravitywave", None, ""), ("largerisingbubble", None, ""),
+                 ("supercell", None, ""), ("risingbubble", 300, ""),
+                 ("densitycurrent", 300, ""), ("twobubbles", 300, "acoustic"),
+                 ("moistrisingbubble", 300, "acoustic"))
+# tests/test_gw_verification.py::test_gravity_wave_si_error_vs_exact: its
+# run_level parameters and its bounds on the L2 errors
+GW_LEVEL = dict(nx=150, nz=11, dt=20.0, timeend=600.0)
+GW_L2_BOUNDS = {"rho": 4e-6, "S": 1e-3, "w": 2e-3, "T": 0.1}
 # what the kernels replaced: the kernels that csrc/weno_x.cu and
 # csrc/awfl_flux.cu held before they were rebuilt on csrc/weno5.cuh, and
 # P3 part 2 before csrc/p3_part2.cu ran its table stage: us per call,
@@ -622,6 +637,116 @@ def run_config(standalone, mmf, counters, name, tmp):
     return line, counts
 
 
+def b1_per_step(cfg):
+    """x-WENO launches of one idealized step: densities and PV in each
+    right-hand side, 3 of SSPRK3 or si_max_iters of an SI step."""
+    if cfg.get("tstype", "ssprk3") == "si":
+        return 2 * cfg.get("si_max_iters", 3)
+    return 6
+
+
+def run_ideal(standalone, weno_x, cfg, tmp, tag):
+    """cfg through run_idealized on the card with the B1 count at 0 just
+    before, statistics at t=0 and at the end (stat_freq set to the run's
+    length); checks the fields finite, the mass of each member conserved
+    to 1e-12 and the B1 count; returns (printable summary, final state)."""
+    dt = standalone.idealized_dt(cfg)
+    nsteps = int(np.ceil(cfg["sim_time"] / dt))
+    cfg = dict(cfg, out_prefix=os.path.join(tmp, tag),
+               stat_freq=(nsteps + 0.5) * dt)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    weno_x.weno_edges_x_cuda.launches = 0
+    t0 = time.perf_counter()
+    out = standalone.run_idealized(cfg, verbose=False, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = weno_x.weno_edges_x_cuda.launches
+    for name, a in zip(("dens", "v", "w"), out):
+        check(a.is_cuda, f"{tag}: {name} is not on the card")
+        check(bool(torch.isfinite(a).all()), f"{tag}: {name} not finite")
+    check(launches == nsteps * b1_per_step(cfg),
+          f"{tag}: {launches} B1 launches in {nsteps} steps")
+    from scipy.io import netcdf_file
+    with netcdf_file(cfg["out_prefix"] + "_stats.nc", "r", mmap=False) as f:
+        t = f.variables["t"][:].copy()
+        mass = f.variables["densstat"][:, 0, :].copy()
+        energy = f.variables["E"][:].copy()
+    check(len(t) == 2 and abs(t[-1] - nsteps * dt) < 1e-6 * dt,
+          f"{tag}: statistics at t={t}")
+    dmass = float(np.abs(mass[-1] - mass[0]).max() / np.abs(mass[0]).max())
+    check(dmass < 1e-12, f"{tag}: mass changed by {dmass:.3e}")
+    drift = float(np.abs(energy[-1] - energy[0]).max()
+                  / np.abs(energy[0]).max())
+    line = (f"{tag}: {nsteps} steps of {dt:.6g} s, "
+            f"{cfg['crm_nx']}x{cfg['crm_nz']} nens {cfg.get('nens', 1)} "
+            f"{cfg.get('tstype', 'ssprk3')}, {wall:.2f} s wall, "
+            f"{wall * 1e3 / nsteps:.2f} ms/step (setup included), "
+            f"B1 {launches}, peak mem "
+            f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB, mass "
+            f"change {dmass:.2e}, energy drift {drift:.2e}, "
+            f"|w|max {float(out[2].abs().max()):.4g}")
+    return line, out
+
+
+def phase_14(standalone, weno_x, golden, gw_verification):
+    """The idealized x-z SPAM runs through run_idealized on the card: the
+    three golden trajectories (14a), the seven x-z configs at their files'
+    grids and the gravity wave against its exact solution (14b)."""
+    # 14a. the idealized golden trajectories on the card, f64, through B1:
+    #      the configs cut to 16x12 nens 2 (risingbubble CE SSPRK3,
+    #      gravitywave CE SI, supercell MCE_rho SI with 5 iterations and
+    #      diffusion), within 1e-9 of pam_tpu's runs, the exact B1 count
+    with tempfile.TemporaryDirectory() as tmp:
+        for name in golden.IDEAL_GOLDEN:
+            cfg = golden.ideal_small_config(name)
+            line, out = run_ideal(standalone, weno_x, cfg, tmp, name)
+            gold = np.load(golden.ideal_path(name))
+            errs = {}
+            for field, a in zip(("dens", "v", "w"), out):
+                ref = gold[field]
+                errs[field] = float(np.abs(ref - a.cpu().numpy()).max()
+                                    / np.abs(ref).max())
+                check(errs[field] < 1e-9, f"phase 14a {name} {field}: "
+                      f"rel err {errs[field]:.3e}")
+            print(f"phase 14a golden {line}; max rel err vs pam_tpu " +
+                  ", ".join(f"{k} {e:.2e}" for k, e in errs.items()),
+                  flush=True)
+
+    # 14b. the seven x-z configs through run_idealized at their files'
+    #      grids, nens and dtype: gravitywave, largerisingbubble and
+    #      supercell to their sim_time, the others 300 steps
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, nsteps, how in IDEAL_CONFIGS:
+            cfg = standalone.load_config(os.path.join(
+                ROOT, "configs", f"input_{name}.yaml"))
+            cut = []
+            if how == "acoustic":
+                cut.append(f"dtcrm {cfg.pop('dtcrm')} dropped")
+            if nsteps is not None:
+                cut.append(f"sim_time {cfg['sim_time']} cut to {nsteps} "
+                           "steps")
+                cfg["sim_time"] = (nsteps - 0.5) * standalone.idealized_dt(
+                    cfg)
+            line, out = run_ideal(standalone, weno_x, cfg, tmp, name)
+            print(f"phase 14b {line}; cut: {', '.join(cut) or 'none'}",
+                  flush=True)
+            del out
+    t0 = time.perf_counter()
+    errs, _, _ = gw_verification.run_level(**GW_LEVEL, device="cuda")
+    torch.cuda.synchronize()
+    for var, bound in GW_L2_BOUNDS.items():
+        check(np.isfinite(errs[var]).all() and errs[var][1] < bound,
+              f"phase 14b gravity wave {var}: L2 {errs[var][1]:.3e} not "
+              f"below {bound}")
+    print(f"phase 14b gravitywave vs the exact solution, run_level "
+          f"{GW_LEVEL} in {time.perf_counter() - t0:.2f} s: L2 (bound) " +
+          ", ".join(f"{v} {errs[v][1]:.3e} ({b})"
+                    for v, b in GW_L2_BOUNDS.items()) + "; Linf " +
+          ", ".join(f"{v} {errs[v][0]:.3e}" for v in GW_L2_BOUNDS),
+          flush=True)
+
+
 def main():
     # 1. environment: a card and the package, before anything is printed
     check(torch.cuda.is_available(), "torch.cuda.is_available() is false")
@@ -633,6 +758,9 @@ def main():
     from pam_tpu_torch.dycore.awfl import AwflDycore
     from pam_tpu_torch.ops import awfl_flux, p3_part2, weno, weno_x
     from pam_tpu_torch.physics.p3 import main as p3main, sedimentation
+    from pam_tpu_torch.utils import gw_verification
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    import make_torch_golden_init as golden
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True)
@@ -834,6 +962,8 @@ def main():
                 {"weno_x": weno_count, "p3_part2": b4_count,
                  "awfl_flux": b3_count, "sub_cycles": cycle_count}, name, tmp)
             print(f"phase 13 run_mmf {line}", flush=True)
+
+    phase_14(standalone, weno_x, golden, gw_verification)
 
     # the kernels' record: float32 times at the main path's shapes (B4
     # with cloud, rain and ice each at half of the points); no single

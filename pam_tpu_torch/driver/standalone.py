@@ -1,22 +1,27 @@
 """Standalone driver: configured MMF runs, as the mmf_simplified executable
-runs them (port of pam_tpu/driver/standalone.py:24-125 and :432-449; ref
+runs them, and the idealized x-z SPAM runs (port of
+pam_tpu/driver/standalone.py:24-125, :249-429 and :432-449; ref
 standalone/mmf_simplified/driver.cpp).
 
-The config keys (sim_time, crm_nx/ny/nz, nens, xlen/ylen/zlen, vcoords,
-dt_gcm, dt_crm_phys, crm_per_phys, out_freq, out_prefix, io_backend,
-micro, sgs, dycore, f64, ens_chunk) are those of configs/input_mmf_*.yaml,
-the names the reference's YAML inputs use. ``ens_chunk`` is checked as
-pam_tpu checks it and then not used: pam_tpu runs a large ensemble in
-micro-batches, the port runs the whole ensemble as one program, and the
-two give the same result.
+The MMF config keys (sim_time, crm_nx/ny/nz, nens, xlen/ylen/zlen,
+vcoords, dt_gcm, dt_crm_phys, crm_per_phys, out_freq, out_prefix,
+io_backend, micro, sgs, dycore, f64, ens_chunk) are those of
+configs/input_mmf_*.yaml, the names the reference's YAML inputs use.
+``ens_chunk`` is checked as pam_tpu checks it and then not used: pam_tpu
+runs a large ensemble in micro-batches, the port runs the whole ensemble
+as one program, and the two give the same result. A config with
+``idealized: true`` or ``mode: idealized`` (configs/input_<case>.yaml)
+runs through run_idealized.
 
 Run:  python -m pam_tpu_torch.driver.standalone <config.yaml>
 
-on the card; ``run_mmf(cfg, device="cpu")`` runs on the CPU.
+on the card; ``run_mmf(cfg, device="cpu")`` and
+``run_idealized(cfg, device="cpu")`` run on the CPU.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import re
 import sys
 import time
@@ -177,10 +182,9 @@ def run_mmf(cfg: dict, verbose: bool = True, device="cuda"):
     from .mmf import setup_supercell_mmf
     from ..io.output import make_writer
 
-    if cfg.get("idealized", False) or cfg.get("mode") == "idealized":
+    if is_idealized(cfg):
         raise NotImplementedError(
-            "idealized runs are not ported yet (ROADMAP queue A: the rest "
-            "of the x-z SPAM, run_idealized)")
+            "an idealized config runs through run_idealized, not run_mmf")
     kw = mmf_setup_kwargs(cfg, device)
     check_ens_chunk(cfg, kw["nens"])
     drv, state = setup_supercell_mmf(**kw)
@@ -217,13 +221,195 @@ def run_mmf(cfg: dict, verbose: bool = True, device="cuda"):
     return state
 
 
+# the diffusion coefficients an idealized config may set (ref
+# read_model_params_file, extrudedmodel.h:5020-5078; 0 = off)
+DIFFUSION_KEYS = ("scalar_horiz_diffusion_coeff",
+                  "scalar_vert_diffusion_coeff",
+                  "velocity_vort_horiz_diffusion_coeff",
+                  "velocity_vort_vert_diffusion_coeff",
+                  "velocity_div_horiz_diffusion_coeff",
+                  "velocity_div_vert_diffusion_coeff")
+
+
+def is_idealized(cfg) -> bool:
+    return bool(cfg.get("idealized", False)) or \
+        cfg.get("mode") == "idealized"
+
+
+def idealized_dt(cfg) -> float:
+    """The step of an idealized run: ``dtcrm``, else 10 s for the SI
+    integrators and the acoustic rule 0.3 min(dx, dz) / 350 m/s for the
+    explicit ones, on the test case's np.linspace levels
+    (pam_tpu/driver/standalone.py:374, 385, 395-396)."""
+    from ..spam import testcases as tcs
+    if cfg.get("tstype", "ssprk3") in ("si", "si_fixed"):
+        return cfg.get("dtcrm", 10.0)
+    tc, _ = tcs.testcase_from_string(cfg["init_data"])
+    dz = float(np.diff(np.linspace(0.0, tc.Lz, cfg["crm_nz"] + 1)).min())
+    return cfg.get("dtcrm", 0.3 * min(tc.Lx / cfg["crm_nx"], dz) / 350.0)
+
+
+def idealized_setup(cfg, device="cuda"):
+    """The pieces of an idealized x-z run of config ``cfg`` on ``device``
+    (pam_tpu/driver/standalone.py:258-402): (tend, step, (dens, v, w),
+    geop, dt, nsteps), where ``step(dens, v, w)`` takes one step of the
+    config's integrator."""
+    from ..spam import si as si_mod
+    from ..spam import testcases as tcs
+    from ..spam.geometry import ExtrudedGeometry
+    from ..spam.tendencies import SpamTendencies
+    from ..spam.thermo import thermo_from_string
+    from ..spam.timesteppers import STEPPERS
+    from ..spam.varset import VariableSet
+
+    name = cfg["init_data"]
+    if name in ("doublevortex", "bickleyjet"):
+        raise NotImplementedError(
+            f"init_data {name!r} runs the layer model (run_layer), which is "
+            "not ported yet (ROADMAP queue A, 'spam/anelastic.py and "
+            "spam/layer.py')")
+    if cfg.get("crm_ny", 1) > 1:
+        raise NotImplementedError(
+            "crm_ny > 1 runs 3-D SPAM (run_idealized_3d), which is not "
+            "ported yet (ROADMAP queue A, '3-D SPAM')")
+    if cfg.get("hamil") in ("an", "man"):
+        raise NotImplementedError(
+            f"hamil {cfg['hamil']!r} runs the anelastic model, which is not "
+            "ported yet (ROADMAP queue A, 'spam/anelastic.py and "
+            "spam/layer.py')")
+    tc, moist = tcs.testcase_from_string(name)
+    nx, nz = cfg["crm_nx"], cfg["crm_nz"]
+    nens = cfg.get("nens", 1)
+    dtype = torch.float64 if cfg.get("f64", True) else torch.float32
+    geom = ExtrudedGeometry.build(nx, np.linspace(0.0, tc.Lz, nz + 1),
+                                  tc.Lx, nens, dtype, device)
+    thermo = thermo_from_string(cfg.get(
+        "thermo", "constkappavirpottemp" if moist else "idealgaspottemp"))
+    special_ref = None
+    if moist:
+        if getattr(tc, "needs_special_init", False):
+            thermo = dataclasses.replace(thermo, cst=tc.thermo_constants())
+        vs = VariableSet(variant="MCE_rho", tracer_names=("water_vapor",),
+                         tracer_positive=(True,), geom=geom, thermo=thermo)
+        if getattr(tc, "needs_special_init", False):
+            # supercell: ICs and reference state from the special column
+            # init (extrudedmodel.h:7148-7287)
+            dens, v, w, geop, special_ref = tcs.setup_supercell(
+                tc, geom, thermo, vs)
+        else:
+            dens, v, w, geop = tcs.setup_moist_testcase(tc, geom, thermo)
+    else:
+        vs = VariableSet(variant="CE", geom=geom, thermo=thermo)
+        dens, v, w, geop = tcs.setup_testcase(tc, geom, thermo)
+
+    # diffusion and numerics knobs (compile-time in the reference,
+    # common.h:72-111)
+    knobs = {k: float(cfg[k]) for k in DIFFUSION_KEYS if k in cfg}
+    for k in ("reconstruction_type", "dual_upwind_type"):
+        if k in cfg:
+            knobs[k] = str(cfg[k])
+    if "tanh_upwind_coeff" in cfg:
+        knobs["tanh_upwind_coeff"] = float(cfg["tanh_upwind_coeff"])
+    tend = SpamTendencies(geom=geom, varset=vs, thermo=thermo, grav=tc.g,
+                          **knobs)
+
+    tstype = cfg.get("tstype", "ssprk3")
+    dt = idealized_dt(cfg)
+    nsteps = int(np.ceil(cfg["sim_time"] / dt))
+    if tstype == "si":
+        # the semi-implicit integrator needs the test case's reference
+        # state (ref tstype="si", core/params.h:151 + SI_Newton.h)
+        if special_ref is not None:
+            ref = special_ref
+        elif hasattr(tc, "refrho_f"):
+            ref = si_mod.build_reference_state(
+                geom, thermo, vs, lambda z: tc.refrho_f(z, thermo),
+                lambda z: tc.refentropicdensity_f(z, thermo),
+                lambda z: np.asarray(tc.refnsq_f(z, thermo)), tc.g)
+        else:
+            raise ValueError(
+                f"init_data {name!r} has no reference state for tstype=si")
+        T = lambda a: torch.as_tensor(a, dtype=dtype, device=geom.device)
+        tend = dataclasses.replace(
+            tend, force_refstate_hydrostatic_balance=True,
+            refdens=T(ref["dens"]), ref_rho_pi=T(ref["rho_pi"]),
+            ref_q_pi=T(ref["q_pi"]), ref_rho_di=T(ref["rho_di"]),
+            ref_q_di=T(ref["q_di"]), ref_B=T(ref["B"]))
+        lin = si_mod.CompressibleVelocityLinearSystem.build(
+            geom, thermo, vs, ref, dt, grav=tc.g)
+        iters, nquad = cfg.get("si_max_iters", 3), cfg.get("si_nquad", 2)
+
+        def step(d, vv, ww):
+            return si_mod.si_step(tend, lin, d, vv, ww, geop, dt, iters,
+                                  nquad)
+    elif tstype == "si_fixed":
+        # fixed-point SI (SIFixedTimeIntegrator, SI_Fixed.h): no linear
+        # solve
+        iters, nquad = cfg.get("si_max_iters", 5), cfg.get("si_nquad", 2)
+
+        def step(d, vv, ww):
+            return si_mod.si_fixed_step(tend, d, vv, ww, geop, dt, iters,
+                                        nquad)
+    else:
+        if tstype not in STEPPERS:
+            raise ValueError(f"unknown tstype {tstype!r}")
+        stepper = STEPPERS[tstype]
+
+        def step(d, vv, ww):
+            return stepper(lambda x: tend.compute_rhs(*x, geop, dt),
+                           (d, vv, ww), dt)
+    return tend, step, (dens, v, w), geop, dt, nsteps
+
+
+def run_idealized(cfg: dict, verbose: bool = True, device="cuda"):
+    """Idealized x-z SPAM run (the idealized branch of driver.cpp, test
+    case by init_data, extrudedmodel.h testcase_from_string) on
+    ``device``; returns the final (dens, v, w). With ``out_prefix`` set,
+    writes the conservation statistics to ``<out_prefix>_stats.nc`` at
+    t=0 and every stat_freq seconds of simulated time."""
+    from ..io.output import StatsWriter
+
+    tend, step, (dens, v, w), geop, dt, nsteps = idealized_setup(cfg, device)
+    stats_every = max(1, int(cfg.get("stat_freq", cfg["sim_time"] / 10) /
+                             dt))
+    stats_writer = None
+    if cfg.get("out_prefix"):
+        st = tend.statistics(dens, v, w, geop)
+        stats_writer = StatsWriter(st, dens.shape[1], cfg["out_prefix"])
+        stats_writer.write(st, 0.0)
+    t0 = time.time()
+    try:
+        for n in range(nsteps):
+            dens, v, w = step(dens, v, w)
+            if (n + 1) % stats_every == 0 and (stats_writer is not None
+                                               or verbose):
+                st = tend.statistics(dens, v, w, geop)
+                if stats_writer is not None:
+                    stats_writer.write(st, dt * (n + 1))
+                if verbose:
+                    print(f"step {n+1} t={dt*(n+1):9.2f}s  "
+                          f"E={float(st['E'][0]):.8e} "
+                          f"mass={float(st['densstat'][0, 0]):.8e}",
+                          flush=True)
+    finally:
+        if stats_writer is not None:
+            stats_writer.close()
+    if verbose:
+        print(f"Run Time: {time.time() - t0}")
+    return dens, v, w
+
+
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
     if not argv:
         print("usage: python -m pam_tpu_torch.driver.standalone "
               "<config.yaml>")
         return 1
-    run_mmf(load_config(argv[0]))
+    cfg = load_config(argv[0])
+    if is_idealized(cfg):
+        run_idealized(cfg)
+    else:
+        run_mmf(cfg)
     return 0
 
 

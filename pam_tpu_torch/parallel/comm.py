@@ -34,6 +34,10 @@ def pmean_h(x: torch.Tensor, axes) -> torch.Tensor:
     return torch.mean(x, dim=axes)
 
 
+def pmax_h(x: torch.Tensor, axes=None) -> torch.Tensor:
+    return torch.amax(x, dim=axes) if axes is not None else torch.max(x)
+
+
 def pmin_h(x: torch.Tensor, axes=None) -> torch.Tensor:
     return torch.amin(x, dim=axes) if axes is not None else torch.min(x)
 

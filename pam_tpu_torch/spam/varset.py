@@ -2,10 +2,10 @@
 pam_tpu/spam/varset.py; ref dynamics/spam/src/hamiltonians/variableset.h).
 
 dens layout ``(ndensity, nens, nz, nx)`` of twisted n-forms: 0 = rho
-(total mass), 1 = S (entropic density), then the physics tracers. Only
-the coupled variant MCE_rho (moist compressible Euler predicting total
-rho, VS_MCE_rho:108-130) is ported; dry CE waits for the idealized SPAM
-cases (ROADMAP queue A).
+(total mass), 1 = S (entropic density), then the physics tracers.
+Variant CE is dry compressible Euler (rho, S; VS_CE:50-65), MCE_rho
+moist compressible Euler predicting total rho (VS_MCE_rho:108-130).
+``pam_tpu``'s default variant is CE; the coupled model passes MCE_rho.
 """
 
 from __future__ import annotations
@@ -18,6 +18,7 @@ import torch
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class VariableSet:
+    variant: str = "CE"            # "CE" or "MCE_rho"
     tracer_names: tuple = ()       # physics tracer names, in dens order 2..
     tracer_positive: tuple = ()
     geom: object = None            # ExtrudedGeometry
@@ -29,12 +30,24 @@ class VariableSet:
     active_id_entr = 1
 
     @property
+    def ndensity_dycore(self):
+        return 2
+
+    @property
+    def ntracers_physics(self):
+        return len(self.tracer_names)
+
+    @property
     def ndensity(self):
-        return 2 + len(self.tracer_names)
+        return 2 + self.ntracers_physics
 
     @property
     def ndensity_active(self):
         return 2
+
+    @property
+    def active_dens_ids(self):
+        return (0, 1)
 
     @property
     def dens_pos(self) -> np.ndarray:
@@ -82,18 +95,32 @@ class VariableSet:
             w = w + dens[self.dens_id_ice]
         return w
 
+    def get_qv(self, dens):
+        return dens[self.dens_id_vap] / dens[self.dens_id_mass]
+
+    def get_ql(self, dens):
+        return dens[self.dens_id_liq] / dens[self.dens_id_mass]
+
+    def get_qi(self, dens):
+        return dens[self.dens_id_ice] / dens[self.dens_id_mass]
+
     def get_qd(self, dens):
+        if self.variant == "CE":
+            return torch.ones_like(dens[0])
         return (dens[self.dens_id_mass] - self._water_dens(dens)) / \
             dens[self.dens_id_mass]
 
     def get_dry_density(self, dens):
+        if self.variant == "CE":
+            return dens[self.dens_id_mass]
         return dens[self.dens_id_mass] - self._water_dens(dens)
 
     def moist_qs(self, dens):
         """(qd, qv, ql, qi) with zeros for absent species."""
-        qv = dens[self.dens_id_vap] / dens[self.dens_id_mass]
-        ql = dens[self.dens_id_liq] / dens[self.dens_id_mass] \
-            if self.liq_found else torch.zeros_like(qv)
-        qi = dens[self.dens_id_ice] / dens[self.dens_id_mass] \
-            if self.ice_found else torch.zeros_like(qv)
+        if self.variant == "CE":
+            z = torch.zeros_like(dens[0])
+            return torch.ones_like(dens[0]), z, z, z
+        qv = self.get_qv(dens)
+        ql = self.get_ql(dens) if self.liq_found else torch.zeros_like(qv)
+        qi = self.get_qi(dens) if self.ice_found else torch.zeros_like(qv)
         return self.get_qd(dens), qv, ql, qi

@@ -5,7 +5,9 @@ full crm_phys_step runs at a tiny size, with Kessler and with P3+SHOC
 under the AWFL dycore; the AWFL thermal bubble takes a step through
 AwflDycore alone; run_mmf of driver/standalone.py runs a tiny Kessler
 config from configs/input_mmf_kessler.yaml and writes its NetCDF file;
-the modules of the standalone slice import."""
+the modules of the standalone slice import; the idealized x-z modules
+import and run_idealized runs configs/input_gravitywave.yaml cut to 8x8
+for 2 SI steps."""
 
 import os
 import subprocess
@@ -67,6 +69,14 @@ with tempfile.TemporaryDirectory() as tmp:
     with netcdf_file(os.path.join(tmp, "k.nc"), "r", mmap=False) as f:
         assert f.variables["t"].shape == (2,)
 assert all(bool(torch.isfinite(v).all()) for v in state.values())
+from pam_tpu_torch.spam import (diagnostics, diffusion, si, testcases,
+                                thermo, timesteppers)
+from pam_tpu_torch.utils import gw_verification
+cfg = standalone.load_config("configs/input_gravitywave.yaml")
+cfg.update(crm_nx=8, crm_nz=8, sim_time=2 * cfg["dtcrm"])
+dens, v, w = standalone.run_idealized(cfg, verbose=False, device="cpu")
+assert dens.shape == (2, 1, 8, 8) and w.shape == (1, 7, 8)
+assert all(bool(torch.isfinite(a).all()) for a in (dens, v, w))
 loaded = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
           or m == "pam_tpu" or m.startswith("pam_tpu.")]
 assert all(sys.modules[m] is None for m in loaded), loaded

@@ -22,14 +22,22 @@
   16x1x12 cells and 2 members (PAMC_SMALL), on the config's own
   build_zint levels, whose first and last cells are half cells: its
   _init file and 10 CRM steps run jitted (mmf_pamc_small.npz) and op by
-  op (mmf_pamc_small_opbyop.npz) — the stretched-grid SPAM trajectory.
+  op (mmf_pamc_small_opbyop.npz) — the stretched-grid SPAM trajectory;
+* ideal_<case>_small.npz for the idealized x-z cases risingbubble (CE,
+  SSPRK3, dry), gravitywave (CE, SI) and supercell (MCE_rho, SI with 5
+  iterations, diffusion and its own reference state): the final (dens, v,
+  w) of pam_tpu's run_idealized on configs/input_<case>.yaml cut by
+  ideal_small_config (16x12 cells, 2 members, IDEAL_STEPS steps of the
+  file's own step). Their initial states are deterministic, so they have
+  no _init file.
 
 tests/test_torch_mmf.py, tests/test_torch_awfl.py and
 tests/test_torch_standalone.py rebuild the _init files and check them
-unchanged.
+unchanged; tests/test_torch_spam_ideal_runs.py checks the ideal_ files
+against pam_tpu's run.
 
 Usage: python tools/make_torch_golden_init.py [name ...]
-(every config when no name is given)
+(every config when no name is given; ideal_<case> for an idealized one)
 """
 
 import os
@@ -46,6 +54,14 @@ CONFIGS = {"kessler_spam_si": ("kessler", "none", "spam"),
            "mmf_pamc_small": ("kessler", "none", "spam")}
 AWFL_NSTEPS = 5
 PAMC_SMALL = dict(crm_nx=16, crm_nz=12, nens=2)
+# the idealized x-z cut: grid and members, and the steps of each stable
+# config (gravitywave 5: its w, a 1-form of ~1, carries the rounding of
+# 5e9-sized dens terms, 6e-10 after 5 steps between pam_tpu's own jitted
+# and op-by-op runs, 1.4e-9 after 10)
+IDEAL_SMALL = dict(crm_nx=16, crm_nz=12, nens=2)
+IDEAL_STEPS = {"risingbubble": 10, "densitycurrent": 10, "gravitywave": 5,
+               "largerisingbubble": 10, "supercell": 10}
+IDEAL_GOLDEN = ("risingbubble", "gravitywave", "supercell")
 # the trajectories: (config, CRM steps, op by op)
 TRAJECTORIES = (("p3_shoc_spam_si", 10, True),
                 ("awfl_kessler", AWFL_NSTEPS, False),
@@ -64,6 +80,33 @@ def pamc_small_kwargs(device="cpu"):
                                    "input_mmf_pamc.yaml"))
     cfg.update(PAMC_SMALL)
     return mmf_setup_kwargs(cfg, device)
+
+
+def ideal_small_config(name, nsteps=None):
+    """configs/input_<name>.yaml cut by IDEAL_SMALL to ``nsteps`` steps
+    (IDEAL_STEPS by default) of the config's own step: sim_time is set
+    half a step short of nsteps steps, so that both packages'
+    ceil(sim_time / dt) takes exactly nsteps."""
+    from pam_tpu_torch.driver.standalone import idealized_dt, load_config
+    cfg = load_config(os.path.join(os.path.dirname(GOLDEN), "..", "configs",
+                                   f"input_{name}.yaml"))
+    cfg.update(IDEAL_SMALL)
+    nsteps = IDEAL_STEPS[name] if nsteps is None else nsteps
+    cfg["sim_time"] = (nsteps - 0.5) * idealized_dt(cfg)
+    return cfg
+
+
+def ideal_trajectory(name):
+    """pam_tpu's run_idealized of ideal_small_config(name): the final
+    dens, v and w, numpy float64."""
+    import numpy as np
+    from pam_tpu.driver.standalone import run_idealized
+    dens, v, w = run_idealized(ideal_small_config(name), verbose=False)
+    return {"dens": np.asarray(dens), "v": np.asarray(v), "w": np.asarray(w)}
+
+
+def ideal_path(name):
+    return os.path.join(GOLDEN, f"ideal_{name}_small.npz")
 
 
 def path(name="kessler_spam_si"):
@@ -126,8 +169,14 @@ def main(argv=None):
     import jax
     jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_enable_x64", True)
-    names = (sys.argv[1:] if argv is None else argv) or list(CONFIGS)
+    names = (sys.argv[1:] if argv is None else argv) or \
+        list(CONFIGS) + [f"ideal_{n}" for n in IDEAL_GOLDEN]
     for name in names:
+        if name.startswith("ideal_"):
+            case = name[len("ideal_"):]
+            np.savez_compressed(ideal_path(case), **ideal_trajectory(case))
+            print(f"wrote {ideal_path(case)}")
+            continue
         np.savez_compressed(path(name), **initial_state(name))
         print(f"wrote {path(name)}")
     for name, nsteps, opbyop in TRAJECTORIES:
