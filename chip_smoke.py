@@ -8,7 +8,11 @@ trajectory (phase 12), the four configs/input_mmf_*.yaml through the
 run_mmf of driver/standalone.py as the files set them (phase 13), and the
 idealized x-z SPAM runs through its run_idealized (phase 14): the three
 idealized golden trajectories (14a) and the seven x-z
-configs/input_<case>.yaml at their files' grids (14b).
+configs/input_<case>.yaml at their files' grids (14b); and 3-D SPAM
+(phase 15): B1 along x and y at the 3-D shapes, the three 3-D goldens
+and Tendencies3D against the numpy oracle (15a), the two 3-D
+configs/input_<case>.yaml at their files' grids (15b) and the coupled
+3-D SPAM+Kessler CRM step at 32x32x50 (15c).
 
 Usage (from the root of a checkout, on a machine with the card):
 
@@ -64,6 +68,10 @@ P3_GOLDEN_TOL = {"wvel": 1e-7, "cloud_water": 5e-9, "rain": 1.1e-5,
 # x-WENO calls per CRM step: densities and PV, in compute_rhs and in the
 # two quasi-Newton evaluations of one SI step
 WENO_CALLS_PER_STEP = 6
+# B1 calls per right-hand side: densities and PV along x in the slab
+# (spam/tendencies.py::recons), 3 along x and 3 along y in 3-D
+# (spam/extruded3d.py::Tendencies3D.recons: densities, qhz, qxy)
+B1_PER_RHS = {1: 2, 2: 6}
 # AWFL flux calls per sub-cycle in 2-D: 3 SSPRK3 stages, x and z
 FLUX_CALLS_PER_CYCLE = 6
 # phase 12: configs/input_mmf_pamc.yaml cut as
@@ -79,6 +87,17 @@ IDEAL_CONFIGS = (("gravitywave", None, ""), ("largerisingbubble", None, ""),
                  ("supercell", None, ""), ("risingbubble", 300, ""),
                  ("densitycurrent", 300, ""), ("twobubbles", 300, "acoustic"),
                  ("moistrisingbubble", 300, "acoustic"))
+# phase 15b: the 3-D configs at their files' grids, as phase 14b's cuts
+IDEAL3D_CONFIGS = (("risingbubble3d", None, ""), ("supercell3d", None, ""))
+# phase 15c: the coupled 3-D CRM step at the slab's 2 km spacing
+FULL3D = dict(nx=32, ny=32, xlen=64000.0, ylen=64000.0)
+# phase 15a: B1 at the 3-D path's shapes (nens 16, 32x32x50): the five
+# Kessler densities and a PV component (qhz of nz-1 layers), along x and
+# along y (on a view with y moved last)
+B1_3D_CASES = (("x densities", (5, 16, 50, 32, 32), -1),
+               ("x PV", (16, 49, 32, 32), -1),
+               ("y densities", (5, 16, 50, 32, 32), -2),
+               ("y PV", (16, 49, 32, 32), -2))
 # tests/test_gw_verification.py::test_gravity_wave_si_error_vs_exact: its
 # run_level parameters and its bounds on the L2 errors
 GW_LEVEL = dict(nx=150, nz=11, dt=20.0, timeend=600.0)
@@ -638,18 +657,21 @@ def run_config(standalone, mmf, counters, name, tmp):
 
 
 def b1_per_step(cfg):
-    """x-WENO launches of one idealized step: densities and PV in each
-    right-hand side, 3 of SSPRK3 or si_max_iters of an SI step."""
+    """B1 launches of one idealized step: B1_PER_RHS in each right-hand
+    side, 3 of SSPRK3 or si_max_iters of an SI step (compute_rhs and
+    si_max_iters - 1 quasi-Newton evaluations)."""
+    per_rhs = B1_PER_RHS[2 if cfg.get("crm_ny", 1) > 1 else 1]
     if cfg.get("tstype", "ssprk3") == "si":
-        return 2 * cfg.get("si_max_iters", 3)
-    return 6
+        return per_rhs * cfg.get("si_max_iters", 3)
+    return 3 * per_rhs
 
 
 def run_ideal(standalone, weno_x, cfg, tmp, tag):
     """cfg through run_idealized on the card with the B1 count at 0 just
     before, statistics at t=0 and at the end (stat_freq set to the run's
     length); checks the fields finite, the mass of each member conserved
-    to 1e-12 and the B1 count; returns (printable summary, final state)."""
+    to 1e-12 (1e-5 in float32, where the statistics are float32 sums)
+    and the B1 count; returns (printable summary, final state)."""
     dt = standalone.idealized_dt(cfg)
     nsteps = int(np.ceil(cfg["sim_time"] / dt))
     cfg = dict(cfg, out_prefix=os.path.join(tmp, tag),
@@ -675,12 +697,15 @@ def run_ideal(standalone, weno_x, cfg, tmp, tag):
     check(len(t) == 2 and abs(t[-1] - nsteps * dt) < 1e-6 * dt,
           f"{tag}: statistics at t={t}")
     dmass = float(np.abs(mass[-1] - mass[0]).max() / np.abs(mass[0]).max())
-    check(dmass < 1e-12, f"{tag}: mass changed by {dmass:.3e}")
+    mass_tol = 1e-12 if cfg.get("f64", True) else 1e-5
+    check(dmass < mass_tol, f"{tag}: mass changed by {dmass:.3e}")
     drift = float(np.abs(energy[-1] - energy[0]).max()
                   / np.abs(energy[0]).max())
-    line = (f"{tag}: {nsteps} steps of {dt:.6g} s, "
-            f"{cfg['crm_nx']}x{cfg['crm_nz']} nens {cfg.get('nens', 1)} "
-            f"{cfg.get('tstype', 'ssprk3')}, {wall:.2f} s wall, "
+    grid = "x".join(str(cfg[k]) for k in ("crm_nx", "crm_ny", "crm_nz")
+                    if cfg.get(k, 1) > 1)
+    line = (f"{tag}: {nsteps} steps of {dt:.6g} s, {grid} nens "
+            f"{cfg.get('nens', 1)} {cfg.get('tstype', 'ssprk3')} "
+            f"{'f64' if cfg.get('f64', True) else 'f32'}, {wall:.2f} s wall, "
             f"{wall * 1e3 / nsteps:.2f} ms/step (setup included), "
             f"B1 {launches}, peak mem "
             f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB, mass "
@@ -747,6 +772,159 @@ def phase_14(standalone, weno_x, golden, gw_verification):
           flush=True)
 
 
+def phase_b1_3d(weno, weno_x, extruded3d):
+    """B1 on the 3-D path's shapes (B1_3D_CASES), f32 and f64: the route
+    the model takes (along x the field itself, along y a view with y
+    moved last; Tendencies3D's _edge_recon_h) against
+    weno_x.weno_edges_h_reference, at
+    TOL; returns {(dtype, case): (kernel ms by graph replay, plain ms,
+    bound ms, max abs err)}."""
+    out = {}
+    for dtype in (torch.float32, torch.float64):
+        tb = weno.weno_tables(5, dtype)
+        for case, shape, axis in B1_3D_CASES:
+            n = shape[axis]
+            rows = int(np.prod(shape)) // n
+            f = field(rows, shape[-1], dtype, seed=rows).reshape(shape)
+            route = lambda: extruded3d._edge_recon_h(f, tb, axis)
+            got = route()
+            torch.cuda.synchronize()
+            ref = weno_x.weno_edges_h_reference(f, tb, axis)
+            err = 0.0
+            for r, g in zip(ref, got):
+                abs_err = float((r - g).abs().max())
+                check(abs_err / max(float(r.abs().max()), 1e-300)
+                      < TOL[dtype], f"B1 3-D {case} {dtype}: rel err "
+                      f"{abs_err:.3e}")
+                err = max(err, abs_err)
+            out[(name_of(dtype), case)] = (
+                graph_ms(route, 200),
+                cuda_ms(lambda: weno_x.weno_edges_h_reference(f, tb, axis), 10),
+                bound_ms(*weno_x.weno_x_work(rows, n, f.element_size(), tb),
+                         dtype)[0], err)
+            del f, got, ref
+    return out
+
+
+def phase_15(standalone, weno_x, golden, mmf_pieces):
+    """3-D SPAM on the card: B1 at the 3-D shapes and the three 3-D
+    goldens and the numpy oracle through it (15a), the two 3-D configs at
+    their files' grids (15b), the coupled 3-D SPAM+Kessler CRM step at
+    32x32x50 (15c). Returns the B1 count of 15c's first run."""
+    from pam_tpu_torch.ops import weno
+    from pam_tpu_torch.spam import extruded3d
+    import spam3d_oracle
+    from torch_spam3d_case import oracle_case_3d
+    setup_supercell_mmf, state_from_numpy, gcm_forcing, weno_count = \
+        mmf_pieces
+
+    # 15a. B1 at the 3-D shapes, both routes, against the plain version
+    b1 = phase_b1_3d(weno, weno_x, extruded3d)
+    print("phase 15a B1 at 3-D shapes (nens 16, 32x32x50), us/call f32 / "
+          "f64: kernel by graph replay (y: on the moved view, one copy "
+          "included) / plain PyTorch (stencil rolls + weno_edges_list) "
+          "(bound); max abs err: " + "; ".join(
+              f"{case} {shape} " + " / ".join(
+                  f"{out[0] * 1e3:.2f} / {out[1] * 1e3:.2f} "
+                  f"({out[2] * 1e3:.2f})"
+                  for out in (b1[(d, case)] for d in ("float32", "float64")))
+              + f", err {max(b1[(d, case)][3] for d in ('float32', 'float64')):.2e}"
+              for case, shape, _ in B1_3D_CASES), flush=True)
+
+    #     the three 3-D goldens on the card, f64, through B1: the 3-D
+    #     configs cut to 10x8x10 nens 2 and the coupled step at 12x8x12
+    #     nens 2, within 1e-9 of pam_tpu, the exact B1 count
+    with tempfile.TemporaryDirectory() as tmp:
+        for name in golden.IDEAL3D_GOLDEN:
+            cfg = golden.ideal_small_config(name)
+            line, out = run_ideal(standalone, weno_x, cfg, tmp, name)
+            gold = np.load(golden.ideal_path(name))
+            errs = {f: float(np.abs(gold[f] - a.cpu().numpy()).max()
+                             / np.abs(gold[f]).max())
+                    for f, a in zip(("dens", "v", "w"), out)}
+            check(max(errs.values()) < 1e-9, f"phase 15a {name}: {errs}")
+            print(f"phase 15a golden {line}; max rel err vs pam_tpu " +
+                  ", ".join(f"{k} {e:.2e}" for k, e in errs.items()),
+                  flush=True)
+    drv, _ = setup_supercell_mmf(**golden.SPAM3D_KW, dtype=torch.float64,
+                                 device="cuda")
+    state = state_from_numpy(dict(np.load(golden.path("mmf_spam3d_small"))),
+                             "cuda", torch.float64)
+    weno_x.weno_edges_x_cuda.launches = 0
+    for _ in range(golden.SPAM3D_NSTEPS):
+        state = drv.crm_phys_step(state)
+    launches = weno_x.weno_edges_x_cuda.launches
+    check(launches == golden.SPAM3D_NSTEPS * 3 * B1_PER_RHS[2],
+          f"phase 15a coupled 3-D: {launches} B1 launches")
+    gerr = golden_errors(state, "mmf_spam3d_small", {})
+    print(f"phase 15a golden coupled 3-D SPAM+Kessler 12x8x12 nens 2 f64 "
+          f"{golden.SPAM3D_NSTEPS} steps, B1 {launches}: max rel err vs "
+          "pam_tpu " + ", ".join(f"{k} {e:.2e}" for k, e in gerr.items()),
+          flush=True)
+    del drv, state
+
+    #     Tendencies3D.compute_rhs on the card against the numpy oracle
+    tend, (dens, v, w, geop), oracle = oracle_case_3d("cuda")
+    dt = 2.0
+    got = tend.compute_rhs(*(torch.as_tensor(a, device="cuda")
+                             for a in (dens, v, w, geop)), dt)
+    want = spam3d_oracle.compute_rhs_3d_oracle(dens, v, w, geop, dt,
+                                               **oracle)
+    errs = {}
+    for name, g, o in zip(("dens", "v", "w"), got, want):
+        errs[name] = float(np.abs(g.cpu().numpy() - o).max()
+                           / max(1.0, float(np.abs(o).max())))
+    check(max(errs.values()) < 1e-10, f"phase 15a oracle: {errs}")
+    print("phase 15a Tendencies3D.compute_rhs on the card vs "
+          "tests/spam3d_oracle.py (6x4x5, y-varying, FCT on): max err "
+          "relative to max(1, |value|) " +
+          ", ".join(f"{k} {e:.2e}" for k, e in errs.items()), flush=True)
+
+    # 15b. the two 3-D configs through run_idealized at their files' grids
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, nsteps, _ in IDEAL3D_CONFIGS:
+            cfg = standalone.load_config(os.path.join(
+                ROOT, "configs", f"input_{name}.yaml"))
+            cut = []
+            if nsteps is not None:
+                cut.append(f"sim_time {cfg['sim_time']} cut to {nsteps} "
+                           "steps")
+                cfg["sim_time"] = (nsteps - 0.5) * standalone.idealized_dt(
+                    cfg)
+            line, out = run_ideal(standalone, weno_x, cfg, tmp, name)
+            print(f"phase 15b {line}; cut: {', '.join(cut) or 'none'}",
+                  flush=True)
+            del out
+    #     the command line of the supercell (30 SI steps, f32)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "pam_tpu_torch.driver.standalone",
+         "configs/input_supercell3d.yaml"], cwd=ROOT, capture_output=True,
+        text=True, timeout=600)
+    check(proc.returncode == 0 and "Run Time:" in proc.stdout,
+          f"phase 15b command line: rc {proc.returncode} "
+          f"{proc.stdout[-2000:]} {proc.stderr[-2000:]}")
+    print(f"phase 15b python -m pam_tpu_torch.driver.standalone "
+          f"configs/input_supercell3d.yaml: exit 0 in "
+          f"{time.perf_counter() - t0:.2f} s; "
+          + " | ".join(proc.stdout.strip().splitlines()[-2:]), flush=True)
+
+    # 15c. the coupled 3-D SPAM+Kessler CRM step at 32x32x50, nens 16
+    counts_3d = None
+    for dtype in (torch.float32, torch.float64):
+        nsteps = 12
+        line, counts = full_width(setup_supercell_mmf, gcm_forcing,
+                                  {"weno_x": weno_count}, 16, dtype,
+                                  nsteps, WATER, **FULL3D)
+        check(counts["weno_x"] == nsteps * 3 * B1_PER_RHS[2],
+              f"phase 15c: {counts} in {nsteps} steps")
+        if counts_3d is None:
+            counts_3d = counts["weno_x"]
+        print(f"phase 15c coupled 3-D SPAM+Kessler 32x32x50 {line}, "
+              f"B1 {counts['weno_x'] / nsteps:.0f} per step", flush=True)
+    return counts_3d
+
+
 def main():
     # 1. environment: a card and the package, before anything is printed
     check(torch.cuda.is_available(), "torch.cuda.is_available() is false")
@@ -760,6 +938,7 @@ def main():
     from pam_tpu_torch.physics.p3 import main as p3main, sedimentation
     from pam_tpu_torch.utils import gw_verification
     sys.path.insert(0, os.path.join(ROOT, "tools"))
+    sys.path.insert(0, os.path.join(ROOT, "tests"))   # the numpy oracles
     import make_torch_golden_init as golden
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -964,6 +1143,9 @@ def main():
             print(f"phase 13 run_mmf {line}", flush=True)
 
     phase_14(standalone, weno_x, golden, gw_verification)
+    launches_3d = phase_15(standalone, weno_x, golden,
+                           (setup_supercell_mmf, state_from_numpy,
+                            gcm_forcing, weno_count))
 
     # the kernels' record: float32 times at the main path's shapes (B4
     # with cloud, rain and ice each at half of the points); no single
@@ -997,7 +1179,8 @@ def main():
          "launches": main_counts["weno_x"],
          "max_abs_err": max(errs.values()),
          "ms": k32, "plain_ms": p32, "bound_ms": b1_bound[0],
-         "bound_by": b1_bound[1], "library_ms": None},
+         "bound_by": b1_bound[1], "library_ms": None,
+         "launches_3d": launches_3d},
         {"name": "p3_part2", "route": "cuda",
          "source": "pam_tpu_torch/csrc/p3_part2.cu",
          "replaces": "pam_tpu/physics/p3/main.py:780",

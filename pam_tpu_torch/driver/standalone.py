@@ -1,6 +1,6 @@
 """Standalone driver: configured MMF runs, as the mmf_simplified executable
-runs them, and the idealized x-z SPAM runs (port of
-pam_tpu/driver/standalone.py:24-125, :249-429 and :432-449; ref
+runs them, and the idealized SPAM runs, x-z and 3-D (port of
+pam_tpu/driver/standalone.py:24-125, :160-429 and :432-449; ref
 standalone/mmf_simplified/driver.cpp).
 
 The MMF config keys (sim_time, crm_nx/ny/nz, nens, xlen/ylen/zlen,
@@ -238,22 +238,146 @@ def is_idealized(cfg) -> bool:
 
 def idealized_dt(cfg) -> float:
     """The step of an idealized run: ``dtcrm``, else 10 s for the SI
-    integrators and the acoustic rule 0.3 min(dx, dz) / 350 m/s for the
-    explicit ones, on the test case's np.linspace levels
-    (pam_tpu/driver/standalone.py:374, 385, 395-396)."""
+    integrators and the acoustic rule 0.3 min(dx, [dy,] dz) / 350 m/s for
+    the explicit ones, on the test case's np.linspace levels, dy =
+    Ly / crm_ny in 3-D (pam_tpu/driver/standalone.py:225-227, 374, 385,
+    395-396)."""
     from ..spam import testcases as tcs
     if cfg.get("tstype", "ssprk3") in ("si", "si_fixed"):
         return cfg.get("dtcrm", 10.0)
     tc, _ = tcs.testcase_from_string(cfg["init_data"])
     dz = float(np.diff(np.linspace(0.0, tc.Lz, cfg["crm_nz"] + 1)).min())
-    return cfg.get("dtcrm", 0.3 * min(tc.Lx / cfg["crm_nx"], dz) / 350.0)
+    dmin = min(tc.Lx / cfg["crm_nx"], dz)
+    if cfg.get("crm_ny", 1) > 1:
+        dmin = min(dmin, getattr(tc, "Ly", tc.Lx) / cfg["crm_ny"])
+    return cfg.get("dtcrm", 0.3 * dmin / 350.0)
+
+
+def _si_reference(tc, geom, thermo, vs, special_ref, name):
+    """The SI reference state: the test case's special one (the
+    supercell's), else built from its reference profiles."""
+    from ..spam import si as si_mod
+    if special_ref is not None:
+        return special_ref
+    if not hasattr(tc, "refrho_f"):
+        raise ValueError(
+            f"init_data {name!r} has no reference state for tstype=si")
+    return si_mod.build_reference_state(
+        geom, thermo, vs, lambda z: tc.refrho_f(z, thermo),
+        lambda z: tc.refentropicdensity_f(z, thermo),
+        lambda z: np.asarray(tc.refnsq_f(z, thermo)), tc.g)
+
+
+def _with_reference(tend, ref, dtype, device):
+    """tend with the SI reference state and the hydrostatic-balance
+    correction on."""
+    T = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
+    return dataclasses.replace(
+        tend, force_refstate_hydrostatic_balance=True,
+        refdens=T(ref["dens"]), ref_rho_pi=T(ref["rho_pi"]),
+        ref_q_pi=T(ref["q_pi"]), ref_rho_di=T(ref["rho_di"]),
+        ref_q_di=T(ref["q_di"]), ref_B=T(ref["B"]))
+
+
+def _numerics_knobs(cfg) -> dict:
+    """The reconstruction and upwinding knobs a config may set
+    (compile-time in the reference, common.h:72-111)."""
+    knobs = {k: str(cfg[k]) for k in ("reconstruction_type",
+                                      "dual_upwind_type") if k in cfg}
+    if "tanh_upwind_coeff" in cfg:
+        knobs["tanh_upwind_coeff"] = float(cfg["tanh_upwind_coeff"])
+    return knobs
+
+
+def _moist_thermo(tc, thermo):
+    """The supercell's own thermodynamic constants where it has them."""
+    if getattr(tc, "needs_special_init", False):
+        return dataclasses.replace(thermo, cst=tc.thermo_constants())
+    return thermo
+
+
+def idealized_setup_3d(cfg, device="cuda"):
+    """The pieces of a 3-D (ndims=2, crm_ny > 1) idealized run of config
+    ``cfg`` on ``device``, as idealized_setup returns them
+    (pam_tpu/driver/standalone.py:160-246): the reference's max_ndims=2
+    cases risingbubble, moistrisingbubble and supercell on an x-y-z grid
+    (extrudedmodel.h:6195, 7050), SSPRK3 or semi-implicit steps through a
+    pressure linear system (``linear_system`` pressure_gravity, the
+    default, or pressure; the velocity system is slab-only). The model
+    takes its default numerics and ignores the numerics knobs, as
+    pam_tpu's does; refuses what the 3-D model has not: diffusion, the
+    anelastic variants and the other integrators (pam_tpu ignores the
+    keys and takes SSPRK3)."""
+    from ..spam import si as si_mod
+    from ..spam import testcases as tcs
+    from ..spam.extruded3d import Tendencies3D
+    from ..spam.geometry import ExtrudedGeometry
+    from ..spam.thermo import thermo_from_string
+    from ..spam.varset import VariableSet
+
+    name = cfg["init_data"]
+    tstype = cfg.get("tstype", "ssprk3")
+    unsupported = [k for k in DIFFUSION_KEYS if float(cfg.get(k, 0.0)) > 0]
+    if cfg.get("hamil") in ("an", "man"):
+        unsupported.append(f"hamil {cfg['hamil']}")
+    if tstype not in ("ssprk3", "si"):
+        unsupported.append(f"tstype {tstype}")
+    if unsupported:
+        raise ValueError(f"a 3-D idealized run (crm_ny > 1) takes tstype "
+                         f"ssprk3 or si without diffusion or anelastic "
+                         f"variants, not: {', '.join(unsupported)}")
+    tc, moist = tcs.testcase_from_string(name)
+    nx, ny, nz = cfg["crm_nx"], cfg["crm_ny"], cfg["crm_nz"]
+    dtype = torch.float64 if cfg.get("f64", True) else torch.float32
+    geom = ExtrudedGeometry.build3d(nx, ny, np.linspace(0.0, tc.Lz, nz + 1),
+                                    tc.Lx, getattr(tc, "Ly", tc.Lx),
+                                    cfg.get("nens", 1), dtype, device)
+    thermo = thermo_from_string(cfg.get(
+        "thermo", "constkappavirpottemp" if moist else "idealgaspottemp"))
+    special_ref = None
+    if moist:
+        thermo = _moist_thermo(tc, thermo)
+        vs = VariableSet(variant="MCE_rho", tracer_names=("water_vapor",),
+                         tracer_positive=(True,), geom=geom, thermo=thermo)
+        if getattr(tc, "needs_special_init", False):
+            dens, v, w, geop, special_ref = tcs.setup_supercell_3d(
+                tc, geom, thermo, vs)
+        else:
+            dens, v, w, geop = tcs.setup_testcase_3d(tc, geom, thermo)
+    else:
+        vs = VariableSet(variant="CE", geom=geom, thermo=thermo)
+        dens, v, w, geop = tcs.setup_testcase_3d(tc, geom, thermo)
+    tend = Tendencies3D(geom=geom, varset=vs, thermo=thermo, grav=tc.g)
+    dt = idealized_dt(cfg)
+    nsteps = int(np.ceil(cfg["sim_time"] / dt))
+    if tstype == "si":
+        ref = _si_reference(tc, geom, thermo, vs, special_ref, name)
+        tend = _with_reference(tend, ref, dtype, geom.device)
+        systems = {"pressure": si_mod.CompressiblePressureLinearSystem,
+                   "pressure_gravity":
+                       si_mod.CompressiblePressureGravityLinearSystem}
+        linsys = cfg.get("linear_system", "pressure_gravity")
+        if linsys not in systems:
+            raise ValueError(f"linear_system {linsys!r}: a 3-D run takes "
+                             f"one of {sorted(systems)}")
+        lin = systems[linsys].build(geom, thermo, vs, ref, dt)
+        iters, nquad = cfg.get("si_max_iters", 3), cfg.get("si_nquad", 2)
+
+        def step(d, vv, ww):
+            return si_mod.si_step(tend, lin, d, vv, ww, geop, dt, iters,
+                                  nquad)
+    else:
+        def step(d, vv, ww):
+            return tend.ssprk3_step(d, vv, ww, geop, dt)
+    return tend, step, (dens, v, w), geop, dt, nsteps
 
 
 def idealized_setup(cfg, device="cuda"):
-    """The pieces of an idealized x-z run of config ``cfg`` on ``device``
+    """The pieces of an idealized run of config ``cfg`` on ``device``
     (pam_tpu/driver/standalone.py:258-402): (tend, step, (dens, v, w),
     geop, dt, nsteps), where ``step(dens, v, w)`` takes one step of the
-    config's integrator."""
+    config's integrator; crm_ny > 1 builds the 3-D run
+    (idealized_setup_3d)."""
     from ..spam import si as si_mod
     from ..spam import testcases as tcs
     from ..spam.geometry import ExtrudedGeometry
@@ -269,9 +393,7 @@ def idealized_setup(cfg, device="cuda"):
             "not ported yet (ROADMAP queue A, 'spam/anelastic.py and "
             "spam/layer.py')")
     if cfg.get("crm_ny", 1) > 1:
-        raise NotImplementedError(
-            "crm_ny > 1 runs 3-D SPAM (run_idealized_3d), which is not "
-            "ported yet (ROADMAP queue A, '3-D SPAM')")
+        return idealized_setup_3d(cfg, device)
     if cfg.get("hamil") in ("an", "man"):
         raise NotImplementedError(
             f"hamil {cfg['hamil']!r} runs the anelastic model, which is not "
@@ -287,8 +409,7 @@ def idealized_setup(cfg, device="cuda"):
         "thermo", "constkappavirpottemp" if moist else "idealgaspottemp"))
     special_ref = None
     if moist:
-        if getattr(tc, "needs_special_init", False):
-            thermo = dataclasses.replace(thermo, cst=tc.thermo_constants())
+        thermo = _moist_thermo(tc, thermo)
         vs = VariableSet(variant="MCE_rho", tracer_names=("water_vapor",),
                          tracer_positive=(True,), geom=geom, thermo=thermo)
         if getattr(tc, "needs_special_init", False):
@@ -305,13 +426,8 @@ def idealized_setup(cfg, device="cuda"):
     # diffusion and numerics knobs (compile-time in the reference,
     # common.h:72-111)
     knobs = {k: float(cfg[k]) for k in DIFFUSION_KEYS if k in cfg}
-    for k in ("reconstruction_type", "dual_upwind_type"):
-        if k in cfg:
-            knobs[k] = str(cfg[k])
-    if "tanh_upwind_coeff" in cfg:
-        knobs["tanh_upwind_coeff"] = float(cfg["tanh_upwind_coeff"])
     tend = SpamTendencies(geom=geom, varset=vs, thermo=thermo, grav=tc.g,
-                          **knobs)
+                          **knobs, **_numerics_knobs(cfg))
 
     tstype = cfg.get("tstype", "ssprk3")
     dt = idealized_dt(cfg)
@@ -319,22 +435,8 @@ def idealized_setup(cfg, device="cuda"):
     if tstype == "si":
         # the semi-implicit integrator needs the test case's reference
         # state (ref tstype="si", core/params.h:151 + SI_Newton.h)
-        if special_ref is not None:
-            ref = special_ref
-        elif hasattr(tc, "refrho_f"):
-            ref = si_mod.build_reference_state(
-                geom, thermo, vs, lambda z: tc.refrho_f(z, thermo),
-                lambda z: tc.refentropicdensity_f(z, thermo),
-                lambda z: np.asarray(tc.refnsq_f(z, thermo)), tc.g)
-        else:
-            raise ValueError(
-                f"init_data {name!r} has no reference state for tstype=si")
-        T = lambda a: torch.as_tensor(a, dtype=dtype, device=geom.device)
-        tend = dataclasses.replace(
-            tend, force_refstate_hydrostatic_balance=True,
-            refdens=T(ref["dens"]), ref_rho_pi=T(ref["rho_pi"]),
-            ref_q_pi=T(ref["q_pi"]), ref_rho_di=T(ref["rho_di"]),
-            ref_q_di=T(ref["q_di"]), ref_B=T(ref["B"]))
+        ref = _si_reference(tc, geom, thermo, vs, special_ref, name)
+        tend = _with_reference(tend, ref, dtype, geom.device)
         lin = si_mod.CompressibleVelocityLinearSystem.build(
             geom, thermo, vs, ref, dt, grav=tc.g)
         iters, nquad = cfg.get("si_max_iters", 3), cfg.get("si_nquad", 2)
@@ -362,14 +464,28 @@ def idealized_setup(cfg, device="cuda"):
 
 
 def run_idealized(cfg: dict, verbose: bool = True, device="cuda"):
-    """Idealized x-z SPAM run (the idealized branch of driver.cpp, test
-    case by init_data, extrudedmodel.h testcase_from_string) on
-    ``device``; returns the final (dens, v, w). With ``out_prefix`` set,
-    writes the conservation statistics to ``<out_prefix>_stats.nc`` at
-    t=0 and every stat_freq seconds of simulated time."""
+    """Idealized SPAM run (the idealized branch of driver.cpp, test case
+    by init_data, extrudedmodel.h testcase_from_string) on ``device``;
+    crm_ny > 1 runs the 3-D model (idealized_setup). Returns the final
+    (dens, v, w).
+    With ``out_prefix`` set, writes the conservation statistics to
+    ``<out_prefix>_stats.nc`` at t=0 and every stat_freq seconds of
+    simulated time."""
+    return _run_idealized(cfg, idealized_setup(cfg, device), verbose)
+
+
+def run_idealized_3d(cfg: dict, verbose: bool = True, device="cuda"):
+    """3-D (ndims=2) idealized SPAM run of config ``cfg`` (crm_ny > 1) on
+    ``device`` (pam_tpu/driver/standalone.py:160-246; idealized_setup_3d
+    builds it); returns the final (dens, v, w), v stacked (vx, vy). The
+    statistics file as in run_idealized, with three PV components."""
+    return _run_idealized(cfg, idealized_setup_3d(cfg, device), verbose)
+
+
+def _run_idealized(cfg, setup, verbose):
     from ..io.output import StatsWriter
 
-    tend, step, (dens, v, w), geop, dt, nsteps = idealized_setup(cfg, device)
+    tend, step, (dens, v, w), geop, dt, nsteps = setup
     stats_every = max(1, int(cfg.get("stat_freq", cfg["sim_time"] / 10) /
                              dt))
     stats_writer = None

@@ -33,6 +33,17 @@ def weno_edges_x_reference(field: torch.Tensor, tables):
     return weno.weno_edges_list(sten, s2c, wrl, tvh, tvl, idl, sigma, c2g)
 
 
+def weno_edges_h_reference(field: torch.Tensor, tables, axis: int):
+    """The same function along the periodic ``axis`` in plain torch, as
+    pam_tpu's 3-D model writes it (``spam/extruded3d.py:77-90``): the
+    five stencil rolls and ``weno_edges_list``."""
+    s2c, wrl, tvh, tvl, c2g, idl, sigma = tables
+    hs = (s2c.shape[-1] - 1) // 2
+    sten = [comm.proll(field, s - hs, axis=axis)
+            for s in range(s2c.shape[-1])]
+    return weno.weno_edges_list(sten, s2c, wrl, tvh, tvl, idl, sigma, c2g)
+
+
 def weno_x_work(rows, nx, itemsize, tables):
     """(bytes, flops) one call needs: the field read once, both edge
     arrays written once; per cell the limiter, then per edge the

@@ -4,7 +4,9 @@ Builds the MMF configuration of inputs/input_pamc.yaml (65x1x50 cells,
 128 km x 64 km x 20 km, dt 20 s) with the SPAM+SI dycore or the AWFL
 dycore (``--dycore awfl``, PAM-A), with Kessler microphysics or with P3
 and SHOC (``--micro p3 --sgs shoc``, the production physics), as
-chip_smoke.py does, runs warmup steps, times steps without the profiler
+chip_smoke.py does, or with ``--grid3d`` the coupled 3-D grid of
+chip_smoke.py's phase 15c (32x32x50 cells, 64 km x 64 km x 20 km: 3-D
+SPAM with the pressure-gravity SI system), runs warmup steps, times steps without the profiler
 (CUDA events), then traces steps with torch.profiler and prints, per
 step:
 
@@ -26,6 +28,7 @@ Usage (on a machine with the card):
 
     python -m pam_tpu_torch.profile_step [--nens 128] [--dtype f32]
         [--micro kessler|p3] [--sgs none|shoc] [--dycore spam|awfl]
+        [--grid3d]
 """
 
 from __future__ import annotations
@@ -46,6 +49,7 @@ from .modules import gcm_forcing
 
 FULL = dict(nx=65, ny=1, nz=50, xlen=128000.0, ylen=64000.0, zlen=20000.0,
             dt_gcm=900.0, dt_crm_phys=20.0)
+FULL3D = dict(FULL, nx=32, ny=32, xlen=64000.0, ylen=64000.0)
 DTYPES = {"f32": torch.float32, "f64": torch.float64}
 WARMUP, STEPS, TOP = 3, 5, 12
 OWN_KERNELS = ("weno_x_kernel", "p3_part2_kernel", "awfl_flux_kernel")
@@ -124,6 +128,8 @@ def main(argv=None):
     ap.add_argument("--micro", choices=("kessler", "p3"), default="kessler")
     ap.add_argument("--sgs", choices=("none", "shoc"), default="none")
     ap.add_argument("--dycore", choices=("spam", "awfl"), default="spam")
+    ap.add_argument("--grid3d", action="store_true",
+                    help="the 32x32x50 grid of chip_smoke.py phase 15c")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_step: torch.cuda.is_available() is false")
@@ -135,14 +141,16 @@ def main(argv=None):
     drv, state = setup_supercell_mmf(nens=args.nens,
                                      dtype=DTYPES[args.dtype],
                                      device="cuda", micro=args.micro,
-                                     sgs=args.sgs, dycore=args.dycore, **FULL)
+                                     sgs=args.sgs, dycore=args.dycore,
+                                     **(FULL3D if args.grid3d else FULL))
     state = gcm_forcing.compute_gcm_forcing_tendencies(drv.coupler, state,
                                                        drv.dt_gcm)
     for _ in range(WARMUP):
         state = drv.crm_phys_step(state)
     cycles = AwflDycore.timestep.cycles
     state, ms, host = timed_steps(drv, state, STEPS)
-    print(f"{args.dycore} {args.micro}+{args.sgs} nens {args.nens} "
+    print(f"{args.dycore} {args.micro}+{args.sgs} "
+          f"{'32x32x50 ' if args.grid3d else ''}nens {args.nens} "
           f"{args.dtype}, unprofiled {STEPS} steps: "
           f"ms/step (CUDA events) mean {np.mean(ms):.3f} median "
           f"{np.median(ms):.3f}, host {host:.3f} ms/step")

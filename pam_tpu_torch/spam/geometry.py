@@ -1,12 +1,15 @@
-"""Extruded primal/dual geometry for the SPAM dycore, x-z slab (port of
-pam_tpu/spam/geometry.py; ref dynamics/spam/src/grids/{topology.h,
-geometry.h}).
+"""Extruded primal/dual geometry for the SPAM dycore, the x-z slab and
+the 3-D x-y-z grid (port of pam_tpu/spam/geometry.py; ref
+dynamics/spam/src/grids/{topology.h, geometry.h}).
 
 Dual (twisted) grid: nz layers, nz+1 interfaces (``zint_d``, ``dz_d``).
 Primal (straight): nz-1 layers between nz interfaces at the dual-layer
 midpoints, except the first/last on the boundaries (geometry.h:303-317).
-The numpy arrays are the float64 setup values; the ``*_t`` tensors are
-the same values cast once to the run's dtype and device.
+The horizontal grid is uniform and periodic: x alone in the slab
+(ndims=1, dy = 1, geometry.h:282-288), x and y in 3-D (ndims=2, ny > 1,
+dy = ylen / ny). The numpy arrays are the float64 setup values; the
+``*_t`` tensors are the same values cast once to the run's dtype and
+device.
 """
 
 from __future__ import annotations
@@ -24,7 +27,7 @@ class ExtrudedGeometry:
     nens: int
     xlen: float
     dx: float
-    dy: float         # 1.0 for ndims=1
+    dy: float         # 1.0 for ndims=1, ylen / ny for ndims=2
     uniform_vertical: bool
     zint_d: np.ndarray   # (nens, nz+1) twisted interfaces
     dz_d: np.ndarray     # (nens, nz)   twisted layer thicknesses
@@ -36,6 +39,8 @@ class ExtrudedGeometry:
     dz_p_t: torch.Tensor        # dz_p as run tensor
     area_n1_t: torch.Tensor     # d_area_n1() as run tensor
     area_nm11_t: torch.Tensor   # d_area_nm11() as run tensor
+    ny: int = 1       # ndims=2 (3-D x-y-z) when > 1
+    ylen: float = 1.0
 
     # --- area entities (geometry.h:402-466; dy=1 for ndims=1) ---
     def d_area_n1(self):
@@ -46,6 +51,10 @@ class ExtrudedGeometry:
         """x-normal side of a dual cell: dy*dz_d(k), (nens, nz)."""
         return self.dy * self.dz_d
 
+    def d_area_nm11_y(self):
+        """y-normal side of a dual cell: dx*dz_d(k) (ndims=2 only)."""
+        return self.dx * self.dz_d
+
     def d_area_n0(self):
         """dual (n,0) = horizontal face: dx*dy (scalar)."""
         return self.dx * self.dy
@@ -53,6 +62,27 @@ class ExtrudedGeometry:
     @property
     def zmid_d(self):
         return 0.5 * (self.zint_d[:, :-1] + self.zint_d[:, 1:])
+
+    def p_area_10(self):
+        """Primal horizontal edge length: dx."""
+        return self.dx
+
+    def p_area_01(self):
+        """Primal vertical edge length at w-level kw: dz_p(kw),
+        (nens, nz-1)."""
+        return self.dz_p
+
+    @staticmethod
+    def build3d(nx: int, ny: int, zint, xlen: float, ylen: float,
+                nens: int, dtype: torch.dtype, device) -> "ExtrudedGeometry":
+        """The 3-D grid (ndims=2 horizontal + z): periodic x and y
+        (pam_tpu/spam/geometry.py:93-97)."""
+        g = ExtrudedGeometry.build(nx, zint, xlen, nens, dtype, device)
+        dy = ylen / ny
+        T = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
+        return dataclasses.replace(
+            g, ny=ny, ylen=ylen, dy=dy, area_n1_t=T(g.dx * dy * g.dz_d),
+            area_nm11_t=T(dy * g.dz_d))
 
     @staticmethod
     def build(nx: int, zint, xlen: float, nens: int, dtype: torch.dtype,

@@ -96,6 +96,23 @@ def _upwind_z(bottom, top, flux_int, utype: str = "heaviside",
     return torch.where(flux_int >= 0, cand_L, cand_R)
 
 
+def level_matrices(geom, dz, ord: int, nh: int = 1):
+    """mirror_recon_matrices of every member's column of thicknesses dz
+    (nens, nlev) (interface mirror rule), as tensors in the geometry's
+    dtype and device with the matrix dims leading and (nens, nlev) plus
+    nh horizontal unit dims trailing (1 in the slab, 2 in 3-D); members
+    with the same column share one build."""
+    cols, inv = np.unique(dz, axis=0, return_inverse=True)
+    s2c, wrl = rm.mirror_recon_matrices(cols, ord, iface=True)
+
+    def to(a, nmat):
+        a = np.moveaxis(a[inv.reshape(-1)], tuple(range(2, 2 + nmat)),
+                        tuple(range(nmat)))
+        return torch.as_tensor(a[(Ellipsis,) + (None,) * nh],
+                               dtype=geom.dtype, device=geom.device)
+    return to(s2c, 2), to(wrl, 3)
+
+
 @dataclasses.dataclass(frozen=True, eq=False)
 class SpamTendencies:
     """Static config + reference-state tensors of the extruded CE / MCE
@@ -138,20 +155,7 @@ class SpamTendencies:
                                self._level_matrices(self.geom.dz_p))
 
     def _level_matrices(self, dz):
-        """mirror_recon_matrices of every member's column (interface
-        mirror rule), as run tensors with the matrix dims leading and
-        (nens, nlev, 1) trailing; members with the same column share one
-        build."""
-        cols, inv = np.unique(dz, axis=0, return_inverse=True)
-        s2c, wrl = rm.mirror_recon_matrices(cols, self.ord, iface=True)
-        g = self.geom
-
-        def to(a, nmat):
-            a = np.moveaxis(a[inv.reshape(-1)], tuple(range(2, 2 + nmat)),
-                            tuple(range(nmat)))
-            return torch.as_tensor(a[..., None], dtype=g.dtype,
-                                   device=g.device)
-        return to(s2c, 2), to(wrl, 3)
+        return level_matrices(self.geom, dz, self.ord)
 
     def vert_per_level(self):
         """Per-level matrices of the density (dual layer) vertical recon;

@@ -8,7 +8,8 @@ the quadrature projection of the analytic fields onto n1-forms
 
 The profiles and projections are numpy float64, copied from pam_tpu; the
 setup functions return tensors in the geometry's dtype on its device.
-The 3-D cases wait for 3-D SPAM (ROADMAP queue A).
+The 3-D (ndims=2) forms of RisingBubble, MoistRisingBubble and Supercell
+(pam_tpu/spam/testcases.py:736-871) project onto 3-D dual cells.
 """
 
 from __future__ import annotations
@@ -723,3 +724,139 @@ def testcase_from_string(name: str):
     """Returns (testcase instance, moist flag)."""
     cls, moist = TESTCASE_REGISTRY[name.lower()]
     return cls(), moist
+
+
+# ---------------------------------------------------------------------------
+# 3-D (ndims=2) initial conditions: the reference's max_ndims=2 cases are
+# RisingBubble (extrudedmodel.h:6195), its moist variant (:6442, inherited)
+# and Supercell (:7050); their 3-D forms replace the 2-D bubble radius by
+# the spherical / ellipsoidal one including (y - yc)
+# ---------------------------------------------------------------------------
+
+def project_n1form_3d(f3, geom, nq: int = 5):
+    """Cell-average projection of f3(x, y, z) over 3-D dual cells by
+    tensor-product Gauss quadrature: (nens, nz, ny, nx) n-forms (integral
+    = avg * dx * dy * dz), numpy float64."""
+    qp, qw = _gauss_legendre(nq)
+    nx, ny, nz, nens = geom.nx, geom.ny, geom.nz, geom.nens
+    dx, dy = geom.dx, geom.dy
+    xq = np.arange(nx)[:, None] * dx + qp[None, :] * dx         # (nx, nq)
+    yq = np.arange(ny)[:, None] * dy + qp[None, :] * dy         # (ny, nq)
+    dzd = geom.dz_d
+    zq = geom.zint_d[:, :-1, None] + qp[None, None, :] * dzd[:, :, None]
+    vals = f3(xq[None, None, None, :, None, None, :],            # x
+              yq[None, None, :, None, None, :, None],            # y
+              zq[:, :, None, None, :, None, None])               # z
+    vals = np.broadcast_to(vals, (nens, nz, ny, nx, nq, nq, nq))
+    avg = np.einsum('ekyxcba,a,b,c->ekyx', vals, qw, qw, qw)
+    return avg * dx * dy * dzd[:, :, None, None]
+
+
+def _r3(tc, x, y, z):
+    yc = 0.5 * getattr(tc, "Ly", tc.Lx)
+    return np.sqrt((x - tc.xc) ** 2 + (y - yc) ** 2 + (z - tc.bzc) ** 2)
+
+
+def _bubble_entropicvar_3d(tc, x, y, z, thermo):
+    """RisingBubble::entropicvar_f, ndims=2 branch (extrudedmodel.h
+    :6252-6262)."""
+    cst = thermo.cst
+    p = isentropic_p(z, tc.theta0, tc.g, cst)
+    T = isentropic_T(z, tc.theta0, tc.g, cst)
+    r = _r3(tc, x, y, z)
+    dtheta = np.where(r < tc.rc,
+                      tc.dss * 0.5 * (1.0 + np.cos(np.pi * r / tc.rc)), 0.0)
+    dT = dtheta * (p / cst.pr) ** cst.kappa_d
+    return thermo.compute_entropic_var_from_p_T(p, T + dT, 1.0, 0, 0, 0)
+
+
+def _bubble_rhov_3d(tc, x, y, z, thermo):
+    """MoistRisingBubble::rhov_f with the spherical radius (:6450-6465)."""
+    r = _r3(tc, x, y, z)
+    rh = np.where(r < tc.rc,
+                  tc.rh0 * 0.5 * (1.0 + np.cos(np.pi * r / tc.rc)), 0.0)
+    Th = isentropic_T(z, tc.theta0, tc.g, thermo.cst)
+    pv = saturation_vapor_pressure(Th) * rh
+    return pv / (thermo.cst.Rv * Th)
+
+
+def moist_entropicvar(tc, x, y, z, thermo):
+    """MoistRisingBubble's entropic variable from the moist state
+    (MoistEulerTestCase::initialize, extrudedmodel.h:5538-5620)."""
+    cst = thermo.cst
+    p = isentropic_p(z, tc.theta0, tc.g, cst)
+    T = isentropic_T(z, tc.theta0, tc.g, cst)
+    rho_v = _bubble_rhov_3d(tc, x, y, z, thermo)
+    qv = rho_v / (tc.rhod_f(x, z, thermo) + rho_v)
+    return thermo.compute_entropic_var_from_p_T(p, T, 1.0 - qv, qv, 0, 0)
+
+
+def setup_testcase_3d(tc, geom, thermo):
+    """3-D initial (dens, v, w, geop) of RisingBubble / MoistRisingBubble
+    (EulerTestCase / MoistEulerTestCase::initialize with ndims=2
+    projections, extrudedmodel.h:5325-5620)."""
+    if isinstance(tc, MoistRisingBubble):
+        def rho3(x, y, z):
+            return (tc.rhod_f(x, z, thermo) +
+                    _bubble_rhov_3d(tc, x, y, z, thermo))
+        parts = [project_n1form_3d(rho3, geom),
+                 project_n1form_3d(
+                     lambda x, y, z: rho3(x, y, z) *
+                     moist_entropicvar(tc, x, y, z, thermo), geom),
+                 project_n1form_3d(
+                     lambda x, y, z: _bubble_rhov_3d(tc, x, y, z, thermo),
+                     geom)]
+    else:
+        parts = [project_n1form_3d(lambda x, y, z: tc.rho_f(x, z, thermo),
+                                   geom),
+                 project_n1form_3d(
+                     lambda x, y, z: tc.rho_f(x, z, thermo) *
+                     _bubble_entropicvar_3d(tc, x, y, z, thermo), geom)]
+    geop = project_n1form_3d(lambda x, y, z: tc.g * z + 0.0 * x + 0.0 * y,
+                             geom)
+    shape = (geom.nens, geom.nz, geom.ny, geom.nx)
+    v = np.zeros((2,) + shape)
+    w = np.zeros((geom.nens, geom.nz - 1, geom.ny, geom.nx))
+    return (_tensor(np.stack(parts), geom), _tensor(v, geom),
+            _tensor(w, geom), _tensor(geop, geom))
+
+
+def setup_supercell_3d(tc, geom, thermo, varset):
+    """3-D Supercell: the reference columns, the ellipsoidal theta' bubble
+    with (rx, ry, rz) and the u(z) shear (Supercell::tht_perturb_f ndims=2
+    + initialize, extrudedmodel.h:7102-7287). Returns (dens, v, w, geop,
+    the SI reference state)."""
+    from . import si as si_mod
+
+    rho, thtv, qv = tc.build_columns(geom, thermo)   # (nens, nz)
+    vol = geom.dx * geom.dy * geom.dz_d
+    refdens = np.zeros((varset.ndensity, geom.nens, geom.nz))
+    refdens[varset.dens_id_mass] = rho * vol
+    refdens[varset.dens_id_entr] = rho * thtv * vol
+    refdens[varset.dens_id_vap] = rho * qv * vol
+    refstate = si_mod.build_moist_reference_state(
+        geom, thermo, varset, refdens, tc.refnsq_f, tc.g)
+
+    nx, ny = geom.nx, geom.ny
+    dens = np.broadcast_to(refdens[:, :, :, None, None],
+                           refdens.shape + (ny, nx)).copy()
+    xmid = (np.arange(nx) + 0.5) * geom.dx
+    ymid = (np.arange(ny) + 0.5) * geom.dy
+    ry_ = getattr(tc, "ry", tc.rx)
+    dxn = (xmid[None, None, None, :] - tc.xbc_frac * tc.Lx) / tc.rx
+    dyn = (ymid[None, None, :, None] - 0.5 * geom.ylen) / ry_
+    dzn = (geom.zmid_d[:, :, None, None] - tc.zbc) / tc.rz
+    r = np.sqrt(dxn * dxn + dyn * dyn + dzn * dzn)
+    pert = np.where(r < 1, tc.dtht * np.cos(np.pi * r / 2) ** 2, 0.0)
+    dens[varset.dens_id_entr] += pert * \
+        refdens[varset.dens_id_mass][:, :, None, None]
+
+    u = tc.u_f(geom.zint_p)                          # (nens, nz)
+    v0 = np.broadcast_to((u * geom.dx)[:, :, None, None],
+                         (geom.nens, geom.nz, ny, nx))
+    v = np.stack([v0, np.zeros_like(v0)])
+    geop = project_n1form_3d(lambda x, y, z: tc.g * z + 0.0 * x + 0.0 * y,
+                             geom)
+    return (_tensor(dens, geom), _tensor(v, geom),
+            _tensor(np.zeros((geom.nens, geom.nz - 1, ny, nx)), geom),
+            _tensor(geop, geom), refstate)

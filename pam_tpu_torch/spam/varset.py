@@ -1,8 +1,9 @@
 """Variable sets: density bookkeeping for the SPAM model variants (port of
 pam_tpu/spam/varset.py; ref dynamics/spam/src/hamiltonians/variableset.h).
 
-dens layout ``(ndensity, nens, nz, nx)`` of twisted n-forms: 0 = rho
-(total mass), 1 = S (entropic density), then the physics tracers.
+dens layout ``(ndensity, nens, nz, nx)`` (slab) or ``(ndensity, nens,
+nz, ny, nx)`` (3-D) of twisted n-forms: 0 = rho (total mass), 1 = S
+(entropic density), then the physics tracers.
 Variant CE is dry compressible Euler (rho, S; VS_CE:50-65), MCE_rho
 moist compressible Euler predicting total rho (VS_MCE_rho:108-130).
 ``pam_tpu``'s default variant is CE; the coupled model passes MCE_rho.
@@ -85,7 +86,11 @@ class VariableSet:
         return dens[self.dens_id_entr] / dens[self.dens_id_mass]
 
     def get_alpha(self, dens):
-        return self.geom.area_n1_t[:, :, None] / dens[self.dens_id_mass]
+        area = self.geom.area_n1_t
+        # (nens, nz) over the horizontal dims: (nens, nz, nx) in the slab,
+        # (nens, nz, ny, nx) in 3-D
+        area = area.reshape(area.shape + (1,) * (dens[0].ndim - area.ndim))
+        return area / dens[self.dens_id_mass]
 
     def _water_dens(self, dens):
         w = dens[self.dens_id_vap]

@@ -7,7 +7,10 @@ AwflDycore alone; run_mmf of driver/standalone.py runs a tiny Kessler
 config from configs/input_mmf_kessler.yaml and writes its NetCDF file;
 the modules of the standalone slice import; the idealized x-z modules
 import and run_idealized runs configs/input_gravitywave.yaml cut to 8x8
-for 2 SI steps."""
+for 2 SI steps; the 3-D modules import, run_idealized_3d runs
+configs/input_supercell3d.yaml cut to 6x4x6 for 2 SI steps, one
+coupled ny = 4 SPAM+Kessler CRM step runs, and the 3-D oracle case that
+chip_smoke.py imports from tests/torch_spam3d_case.py builds."""
 
 import os
 import subprocess
@@ -77,6 +80,24 @@ cfg.update(crm_nx=8, crm_nz=8, sim_time=2 * cfg["dtcrm"])
 dens, v, w = standalone.run_idealized(cfg, verbose=False, device="cpu")
 assert dens.shape == (2, 1, 8, 8) and w.shape == (1, 7, 8)
 assert all(bool(torch.isfinite(a).all()) for a in (dens, v, w))
+from pam_tpu_torch.spam import dycore, extruded3d, geometry, varset
+cfg = standalone.load_config("configs/input_supercell3d.yaml")
+cfg.update(crm_nx=6, crm_ny=4, crm_nz=6, sim_time=2 * cfg["dtcrm"])
+dens, v, w = standalone.run_idealized_3d(cfg, verbose=False, device="cpu")
+assert dens.shape == (3, 1, 6, 4, 6) and v.shape == (2, 1, 6, 4, 6)
+assert all(bool(torch.isfinite(a).all()) for a in (dens, v, w))
+drv, state = setup_supercell_mmf(nx=8, ny=4, nz=8, nens=1, xlen=16000.0,
+                                 ylen=8000.0, zlen=16000.0, dt_gcm=20.0,
+                                 dt_crm_phys=20.0, dtype=torch.float64,
+                                 device="cpu", dycore="spam")
+assert isinstance(drv.dycore.tend, extruded3d.Tendencies3D)
+state = gcm_forcing.compute_gcm_forcing_tendencies(drv.coupler, state, 20.0)
+state = drv.crm_phys_step(state)
+assert all(bool(torch.isfinite(v).all()) for v in state.values())
+sys.path.insert(0, "tests")
+from torch_spam3d_case import oracle_case_3d
+tend, (dens, v, w, geop), _ = oracle_case_3d("cpu")
+assert isinstance(tend, extruded3d.Tendencies3D) and dens.shape[0] == 3
 loaded = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
           or m == "pam_tpu" or m.startswith("pam_tpu.")]
 assert all(sys.modules[m] is None for m in loaded), loaded

@@ -72,3 +72,22 @@ def test_p3_shoc_step_emits_the_sgs_span():
     assert order == ["pam:sponge", "pam:sgs", "pam:micro"]
     with pytest.raises(SystemExit, match="cuda"):
         profile_step.main(["--micro", "p3", "--sgs", "shoc"])
+
+
+def test_3d_step_emits_layer_spans():
+    """The coupled 3-D SPAM step (profile_step --grid3d) emits the same
+    layer spans, its SI step through the pressure-gravity system."""
+    from pam_tpu_torch import profile_step
+    assert profile_step.FULL3D["ny"] == 32
+    drv, state = setup_supercell_mmf(
+        nx=6, ny=4, nz=8, nens=1, xlen=12000.0, ylen=8000.0, zlen=16000.0,
+        dt_gcm=40.0, dt_crm_phys=20.0, dtype=torch.float64, device="cpu",
+        dycore="spam")
+    state = gcm_forcing.compute_gcm_forcing_tendencies(drv.coupler, state,
+                                                       40.0)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        drv.crm_phys_step(state)
+    names = {e.name for e in prof.events() if e.name.startswith("pam:")}
+    assert names == SPANS
+    with pytest.raises(SystemExit, match="cuda"):
+        profile_step.main(["--grid3d", "--nens", "16"])

@@ -619,5 +619,9 @@ def test_two_point_si_timestep_matches_jax(coupled):
                       20.0)
     for k in ("density_dry", "uvel", "wvel", "temp", "water_vapor"):
         _close(ref[k], got[k], 1e-10, k)
-    with pytest.raises(NotImplementedError, match="pressure SI linear"):
-        td.with_si(refstate, 20.0, linear_system="pressure")
+    # the slab's other linear systems: the pressure systems build, an
+    # unknown name is refused
+    assert type(td.with_si(refstate, 20.0, linear_system="pressure")
+                .si_linsys) is tsi.CompressiblePressureLinearSystem
+    with pytest.raises(ValueError, match="unknown linear_system"):
+        td.with_si(refstate, 20.0, linear_system="anelastic")

@@ -12,7 +12,8 @@ configs/input_*.yaml cut to 16x12 cells and 2 members
   packages, and stay finite at the acoustic rule's step;
 * the conservation statistics file, the B1 launch count (0 on the CPU),
   main() on an idealized file, and the refusals of what is not ported
-  (the layer model, 3-D, anelastic).
+  (the layer model, anelastic; the 3-D configs run in
+  tests/test_torch_spam3d_runs.py).
 """
 
 import os
@@ -175,8 +176,6 @@ def test_main_runs_an_idealized_file(tmp_path, monkeypatch, capsys):
 @pytest.mark.parametrize("name,why", [
     ("input_doublevortex.yaml", "layer model"),
     ("input_bickleyjet.yaml", "layer model"),
-    ("input_risingbubble3d.yaml", "3-D SPAM"),
-    ("input_supercell3d.yaml", "3-D SPAM"),
     ("input_risingbubble_an.yaml", "anelastic")])
 def test_later_items_are_refused(name, why):
     """Configs whose modules are not ported raise with their reason and

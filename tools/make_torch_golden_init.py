@@ -29,12 +29,21 @@
   w) of pam_tpu's run_idealized on configs/input_<case>.yaml cut by
   ideal_small_config (16x12 cells, 2 members, IDEAL_STEPS steps of the
   file's own step). Their initial states are deterministic, so they have
-  no _init file.
+  no _init file;
+* ideal_risingbubble3d_small.npz and ideal_supercell3d_small.npz, the 3-D
+  (ny > 1) idealized runs: configs/input_<case>.yaml cut to 10x8x10
+  cells and 2 members (IDEAL3D_SMALL), risingbubble3d SSPRK3 and
+  supercell3d SI through the pressure-gravity system in float64 (its file
+  runs float32);
+* mmf_spam3d_small: the coupled 3-D SPAM+SI (pressure-gravity) step with
+  Kessler at 12x8x12 cells and 2 members (SPAM3D_KW): its _init file and
+  3 CRM steps run jitted (mmf_spam3d_small.npz, with vvel).
 
-tests/test_torch_mmf.py, tests/test_torch_awfl.py and
-tests/test_torch_standalone.py rebuild the _init files and check them
-unchanged; tests/test_torch_spam_ideal_runs.py checks the ideal_ files
-against pam_tpu's run.
+tests/test_torch_mmf.py, tests/test_torch_awfl.py,
+tests/test_torch_standalone.py and tests/test_torch_spam3d_runs.py
+rebuild the _init files and check them unchanged;
+tests/test_torch_spam_ideal_runs.py and tests/test_torch_spam3d_runs.py
+check the ideal_ files against pam_tpu's run.
 
 Usage: python tools/make_torch_golden_init.py [name ...]
 (every config when no name is given; ideal_<case> for an idealized one)
@@ -51,7 +60,8 @@ GOLDEN = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
 CONFIGS = {"kessler_spam_si": ("kessler", "none", "spam"),
            "p3_shoc_spam_si": ("p3", "shoc", "spam"),
            "awfl_kessler": ("kessler", "none", "awfl"),
-           "mmf_pamc_small": ("kessler", "none", "spam")}
+           "mmf_pamc_small": ("kessler", "none", "spam"),
+           "mmf_spam3d_small": ("kessler", "none", "spam")}
 AWFL_NSTEPS = 5
 PAMC_SMALL = dict(crm_nx=16, crm_nz=12, nens=2)
 # the idealized x-z cut: grid and members, and the steps of each stable
@@ -62,12 +72,24 @@ IDEAL_SMALL = dict(crm_nx=16, crm_nz=12, nens=2)
 IDEAL_STEPS = {"risingbubble": 10, "densitycurrent": 10, "gravitywave": 5,
                "largerisingbubble": 10, "supercell": 10}
 IDEAL_GOLDEN = ("risingbubble", "gravitywave", "supercell")
+# the 3-D cut: grid and members, the steps of each config, what else
+# changes (the supercell in float64)
+IDEAL3D_SMALL = dict(crm_nx=10, crm_ny=8, crm_nz=10, nens=2)
+IDEAL3D_STEPS = {"risingbubble3d": 4, "supercell3d": 3}
+IDEAL3D_EXTRA = {"supercell3d": dict(f64=True)}
+IDEAL3D_GOLDEN = tuple(IDEAL3D_STEPS)
+# the coupled 3-D step: dx = dy = 2 km
+SPAM3D_KW = dict(nx=12, ny=8, nz=12, nens=2, xlen=24000.0, ylen=16000.0,
+                 zlen=20000.0, micro="kessler", sgs="none", dt_gcm=200.0,
+                 dt_crm_phys=20.0, dycore="spam")
+SPAM3D_NSTEPS = 3
 # the trajectories: (config, CRM steps, op by op)
 TRAJECTORIES = (("p3_shoc_spam_si", 10, True),
                 ("awfl_kessler", AWFL_NSTEPS, False),
                 ("awfl_kessler", AWFL_NSTEPS, True),
                 ("mmf_pamc_small", 10, False),
-                ("mmf_pamc_small", 10, True))
+                ("mmf_pamc_small", 10, True),
+                ("mmf_spam3d_small", SPAM3D_NSTEPS, False))
 
 
 def pamc_small_kwargs(device="cpu"):
@@ -83,15 +105,21 @@ def pamc_small_kwargs(device="cpu"):
 
 
 def ideal_small_config(name, nsteps=None):
-    """configs/input_<name>.yaml cut by IDEAL_SMALL to ``nsteps`` steps
-    (IDEAL_STEPS by default) of the config's own step: sim_time is set
+    """configs/input_<name>.yaml cut by IDEAL_SMALL (IDEAL3D_SMALL and
+    IDEAL3D_EXTRA for a 3-D config) to ``nsteps`` steps (IDEAL_STEPS or
+    IDEAL3D_STEPS by default) of the config's own step: sim_time is set
     half a step short of nsteps steps, so that both packages'
     ceil(sim_time / dt) takes exactly nsteps."""
     from pam_tpu_torch.driver.standalone import idealized_dt, load_config
     cfg = load_config(os.path.join(os.path.dirname(GOLDEN), "..", "configs",
                                    f"input_{name}.yaml"))
-    cfg.update(IDEAL_SMALL)
-    nsteps = IDEAL_STEPS[name] if nsteps is None else nsteps
+    if name in IDEAL3D_STEPS:
+        cfg.update(IDEAL3D_SMALL, **IDEAL3D_EXTRA.get(name, {}))
+        steps = IDEAL3D_STEPS
+    else:
+        cfg.update(IDEAL_SMALL)
+        steps = IDEAL_STEPS
+    nsteps = steps[name] if nsteps is None else nsteps
     cfg["sim_time"] = (nsteps - 0.5) * idealized_dt(cfg)
     return cfg
 
@@ -121,6 +149,8 @@ def _setup(name):
         kw = pamc_small_kwargs()
         del kw["device"]
         return setup_supercell_mmf(**dict(kw, dtype=jnp.float64))
+    if name == "mmf_spam3d_small":
+        return setup_supercell_mmf(**SPAM3D_KW, dtype=jnp.float64)
     micro, sgs, dycore = CONFIGS[name]
     return setup_supercell_mmf(
         nx=16, ny=1, nz=12, nens=2, xlen=32000.0, ylen=64000.0,
@@ -161,6 +191,8 @@ def trajectory(name, nsteps, opbyop):
             state = step(state)
     extra = ("cloud_liquid", "precip_liquid") if CONFIGS[name][0] == \
         "kessler" else ("cloud_water", "rain", "ice", "tke")
+    if name == "mmf_spam3d_small":
+        extra += ("vvel",)
     return {k: np.asarray(state[k]) for k in FIELDS + extra}
 
 
@@ -170,7 +202,7 @@ def main(argv=None):
     jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_enable_x64", True)
     names = (sys.argv[1:] if argv is None else argv) or \
-        list(CONFIGS) + [f"ideal_{n}" for n in IDEAL_GOLDEN]
+        list(CONFIGS) + [f"ideal_{n}" for n in IDEAL_GOLDEN + IDEAL3D_GOLDEN]
     for name in names:
         if name.startswith("ideal_"):
             case = name[len("ideal_"):]
