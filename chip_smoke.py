@@ -12,7 +12,12 @@ configs/input_<case>.yaml at their files' grids (14b); and 3-D SPAM
 (phase 15): B1 along x and y at the 3-D shapes, the three 3-D goldens
 and Tendencies3D against the numpy oracle (15a), the two 3-D
 configs/input_<case>.yaml at their files' grids (15b) and the coupled
-3-D SPAM+Kessler CRM step at 32x32x50 (15c).
+3-D SPAM+Kessler CRM step at 32x32x50 (15c); and the anelastic and
+shallow-water layer models and the GCM bridge (phase 16): B1 at their
+shapes, their five goldens and the anelastic compute_rhs against the
+numpy oracle (16a), configs/input_{risingbubble_an,doublevortex,
+bickleyjet}.yaml at their files' grids (16b) and the GCM round trip
+through interface.py's registry at 65x1x50 nens 128 (16c).
 
 Usage (from the root of a checkout, on a machine with the card):
 
@@ -98,6 +103,33 @@ B1_3D_CASES = (("x densities", (5, 16, 50, 32, 32), -1),
                ("x PV", (16, 49, 32, 32), -1),
                ("y densities", (5, 16, 50, 32, 32), -2),
                ("y PV", (16, 49, 32, 32), -2))
+# phase 16: B1 calls per right-hand side of the layer models: the
+# densities, q0 and f0 stacked into one field, along x and along y
+# (spam/layer.py::LayerModel.recons)
+B1_PER_RHS_LAYER = 2
+# phase 16a: B1 at the new paths' shapes, one member: the AN densities and
+# PV of input_risingbubble_an.yaml's 40x30 cells along x; the layer
+# models' stacked field (h, q0, f0) of input_doublevortex.yaml's 64x64
+# and input_bickleyjet.yaml's 50x50 cells along x and along y
+B1_AN_LAYER_CASES = (("AN x densities", (2, 1, 30, 40), -1),
+                     ("AN x PV", (1, 29, 40), -1),
+                     ("doublevortex x", (3, 1, 64, 64), -1),
+                     ("doublevortex y", (3, 1, 64, 64), -2),
+                     ("bickleyjet x", (3, 1, 50, 50), -1),
+                     ("bickleyjet y", (3, 1, 50, 50), -2))
+# phase 16b: the anelastic and layer configs at their files' grids, as
+# phase 14b's cuts (bickleyjet's 10,000 steps of 0.02 s cut to 5,000, its
+# first 100 s, about half a minute on an H100)
+AN_LAYER_CONFIGS = (("risingbubble_an", None), ("doublevortex", None),
+                    ("bickleyjet", 5000))
+# phase 16c: the GCM round trip through the port's registry at the main
+# path's width, f64, 2 GCM steps of 80 s (4 CRM steps each); the fields
+# the GCM mirrors (tests/test_gcm_native_roundtrip.py)
+ROUND_TRIP_NENS = 128
+ROUND_TRIP_DT_GCM = 80.0
+ROUND_TRIP_STEPS = 2
+ROUND_TRIP_FIELDS = ("temp", "water_vapor", "density_dry", "uvel", "vvel",
+                     "wvel", "cloud_liquid", "precip_liquid")
 # tests/test_gw_verification.py::test_gravity_wave_si_error_vs_exact: its
 # run_level parameters and its bounds on the L2 errors
 GW_LEVEL = dict(nx=150, nz=11, dt=20.0, timeend=600.0)
@@ -656,10 +688,13 @@ def run_config(standalone, mmf, counters, name, tmp):
     return line, counts
 
 
-def b1_per_step(cfg):
-    """B1 launches of one idealized step: B1_PER_RHS in each right-hand
-    side, 3 of SSPRK3 or si_max_iters of an SI step (compute_rhs and
-    si_max_iters - 1 quasi-Newton evaluations)."""
+def b1_per_step(cfg, layer=False):
+    """B1 launches of one idealized step: B1_PER_RHS (B1_PER_RHS_LAYER for
+    a layer model) in each right-hand side, 3 of SSPRK3 or si_max_iters of
+    an SI step (compute_rhs and si_max_iters - 1 quasi-Newton
+    evaluations)."""
+    if layer:
+        return 3 * B1_PER_RHS_LAYER
     per_rhs = B1_PER_RHS[2 if cfg.get("crm_ny", 1) > 1 else 1]
     if cfg.get("tstype", "ssprk3") == "si":
         return per_rhs * cfg.get("si_max_iters", 3)
@@ -772,21 +807,20 @@ def phase_14(standalone, weno_x, golden, gw_verification):
           flush=True)
 
 
-def phase_b1_3d(weno, weno_x, extruded3d):
-    """B1 on the 3-D path's shapes (B1_3D_CASES), f32 and f64: the route
-    the model takes (along x the field itself, along y a view with y
-    moved last; Tendencies3D's _edge_recon_h) against
-    weno_x.weno_edges_h_reference, at
-    TOL; returns {(dtype, case): (kernel ms by graph replay, plain ms,
-    bound ms, max abs err)}."""
+def phase_b1_shapes(weno, weno_x, cases, recon):
+    """B1 on a path's shapes (cases: (name, shape, axis)), f32 and f64:
+    the route the model takes, recon(field, tables, axis) (along x the
+    field itself, along y a view with y moved last), against
+    weno_x.weno_edges_h_reference, at TOL; returns {(dtype, case): (kernel
+    ms by graph replay, plain ms, bound ms, max abs err)}."""
     out = {}
     for dtype in (torch.float32, torch.float64):
         tb = weno.weno_tables(5, dtype)
-        for case, shape, axis in B1_3D_CASES:
+        for case, shape, axis in cases:
             n = shape[axis]
             rows = int(np.prod(shape)) // n
             f = field(rows, shape[-1], dtype, seed=rows).reshape(shape)
-            route = lambda: extruded3d._edge_recon_h(f, tb, axis)
+            route = lambda: recon(f, tb, axis)
             got = route()
             torch.cuda.synchronize()
             ref = weno_x.weno_edges_h_reference(f, tb, axis)
@@ -794,7 +828,7 @@ def phase_b1_3d(weno, weno_x, extruded3d):
             for r, g in zip(ref, got):
                 abs_err = float((r - g).abs().max())
                 check(abs_err / max(float(r.abs().max()), 1e-300)
-                      < TOL[dtype], f"B1 3-D {case} {dtype}: rel err "
+                      < TOL[dtype], f"B1 {case} {shape} {dtype}: rel err "
                       f"{abs_err:.3e}")
                 err = max(err, abs_err)
             out[(name_of(dtype), case)] = (
@@ -804,6 +838,21 @@ def phase_b1_3d(weno, weno_x, extruded3d):
                          dtype)[0], err)
             del f, got, ref
     return out
+
+
+def b1_summary(b1, cases):
+    """phase_b1_shapes' times and errors as one printable line."""
+    return ("us/call f32 / f64: kernel by graph replay (y: on the moved "
+            "view, one copy included) / plain PyTorch (stencil rolls + "
+            "weno_edges_list) (bound); max abs err: " + "; ".join(
+                f"{case} {shape} " + " / ".join(
+                    f"{out[0] * 1e3:.2f} / {out[1] * 1e3:.2f} "
+                    f"({out[2] * 1e3:.2f})"
+                    for out in (b1[(d, case)] for d in ("float32",
+                                                        "float64")))
+                + f", err "
+                f"{max(b1[(d, case)][3] for d in ('float32', 'float64')):.2e}"
+                for case, shape, _ in cases))
 
 
 def phase_15(standalone, weno_x, golden, mmf_pieces):
@@ -819,17 +868,9 @@ def phase_15(standalone, weno_x, golden, mmf_pieces):
         mmf_pieces
 
     # 15a. B1 at the 3-D shapes, both routes, against the plain version
-    b1 = phase_b1_3d(weno, weno_x, extruded3d)
-    print("phase 15a B1 at 3-D shapes (nens 16, 32x32x50), us/call f32 / "
-          "f64: kernel by graph replay (y: on the moved view, one copy "
-          "included) / plain PyTorch (stencil rolls + weno_edges_list) "
-          "(bound); max abs err: " + "; ".join(
-              f"{case} {shape} " + " / ".join(
-                  f"{out[0] * 1e3:.2f} / {out[1] * 1e3:.2f} "
-                  f"({out[2] * 1e3:.2f})"
-                  for out in (b1[(d, case)] for d in ("float32", "float64")))
-              + f", err {max(b1[(d, case)][3] for d in ('float32', 'float64')):.2e}"
-              for case, shape, _ in B1_3D_CASES), flush=True)
+    b1 = phase_b1_shapes(weno, weno_x, B1_3D_CASES, extruded3d._edge_recon_h)
+    print("phase 15a B1 at 3-D shapes (nens 16, 32x32x50), " +
+          b1_summary(b1, B1_3D_CASES), flush=True)
 
     #     the three 3-D goldens on the card, f64, through B1: the 3-D
     #     configs cut to 10x8x10 nens 2 and the coupled step at 12x8x12
@@ -923,6 +964,242 @@ def phase_15(standalone, weno_x, golden, mmf_pieces):
         print(f"phase 15c coupled 3-D SPAM+Kessler 32x32x50 {line}, "
               f"B1 {counts['weno_x'] / nsteps:.0f} per step", flush=True)
     return counts_3d
+
+
+def an_constraint(standalone, cfg, out):
+    """The anelastic constraint of a run's final winds: max |div(rho_ref
+    u)| relative to the largest |v| or |w| (rho_ref and the cell shapes are
+    of order 1 here); checks it at round-off, 1e-9."""
+    tend = standalone.idealized_setup(cfg, "cuda")[0]
+    div = float(tend.psolver.divergence(out[1], out[2]).abs().max())
+    rel = div / max(float(out[1].abs().max()), float(out[2].abs().max()))
+    check(rel < 1e-9, f"{cfg['init_data']}: anelastic constraint {rel:.3e}")
+    return rel
+
+
+def run_layer(standalone, weno_x, cfg, tag):
+    """cfg, a layer-model config, through run_idealized (its run_layer) on
+    the card with the B1 count at 0 just before; statistics of
+    layer_setup's initial state and of the final one. Checks the fields
+    finite, the mass of each density and member and the total PV
+    (relative to the sum of |zeta + f|) conserved to 1e-12 (1e-5 in
+    float32) and the B1 count; returns (printable summary, final
+    (dens, v))."""
+    m, _, (d0, v0), (hs, cor), dt, nsteps = standalone.layer_setup(cfg,
+                                                                  "cuda")
+    st0 = m.statistics(d0, v0, hs, cor)
+    pv_scale = (m.q0f0(d0, v0, cor)[3] + cor).abs().sum((-2, -1))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    weno_x.weno_edges_x_cuda.launches = 0
+    t0 = time.perf_counter()
+    out = standalone.run_idealized(cfg, verbose=False, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = weno_x.weno_edges_x_cuda.launches
+    for name, a in zip(("dens", "v"), out):
+        check(a.is_cuda, f"{tag}: {name} is not on the card")
+        check(bool(torch.isfinite(a).all()), f"{tag}: {name} not finite")
+    check(launches == nsteps * b1_per_step(cfg, layer=True),
+          f"{tag}: {launches} B1 launches in {nsteps} steps")
+    st1 = m.statistics(*out, hs, cor)
+    dmass = float(((st1["mass"] - st0["mass"]).abs()
+                   / st0["mass"].abs()).max())
+    dpv = float(((st1["pv"] - st0["pv"]).abs() / pv_scale).max())
+    drift = float(((st1["E"] - st0["E"]).abs() / st0["E"].abs()).max())
+    tol = 1e-12 if cfg.get("f64", True) else 1e-5
+    check(dmass < tol and dpv < tol,
+          f"{tag}: mass changed by {dmass:.3e}, PV by {dpv:.3e}")
+    line = (f"{tag}: {nsteps} steps of {dt:.6g} s, {cfg['crm_nx']}x"
+            f"{cfg.get('crm_ny', cfg['crm_nx'])} nens {cfg.get('nens', 1)} "
+            f"{m.variant} ssprk3 {'f64' if cfg.get('f64', True) else 'f32'}, "
+            f"{wall:.2f} s wall, {wall * 1e3 / nsteps:.2f} ms/step (setup "
+            f"included), B1 {launches}, peak mem "
+            f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB, mass "
+            f"change {dmass:.2e}, PV change {dpv:.2e}, energy drift "
+            f"{drift:.2e}")
+    return line, out
+
+
+def phase_16(standalone, weno_x, golden, setup_supercell_mmf):
+    """The anelastic and layer SPAM models and the GCM bridge on the card:
+    B1 at the new shapes, the five goldens and the AN compute_rhs against
+    the numpy oracle (16a), the three configs at their files' grids and
+    the doublevortex command line (16b), the GCM round trip through the
+    port's registry at 65x1x50 nens 128 (16c). Returns the B1 counts of
+    16b's risingbubble_an and doublevortex runs and of 16c."""
+    from pam_tpu_torch.ops import weno
+    from pam_tpu_torch.spam import layer
+    import spam_oracle
+    from torch_anelastic_case import an_case
+    counts = {}
+
+    # 16a. B1 at the anelastic and layer shapes against the plain version
+    b1 = phase_b1_shapes(weno, weno_x, B1_AN_LAYER_CASES, layer._edge_recon)
+    print("phase 16a B1 at the anelastic and layer shapes (one member), " +
+          b1_summary(b1, B1_AN_LAYER_CASES), flush=True)
+
+    #     the five goldens on the card, f64, through B1: the AN and MAN
+    #     bubbles cut to 16x12 and the three layer runs cut to 16x16, nens
+    #     2, 10 steps each, within 1e-9 of pam_tpu's runs, the exact B1
+    #     count, the anelastic constraint at round-off
+    with tempfile.TemporaryDirectory() as tmp:
+        for name in golden.AN_LAYER:
+            cfg = golden.ideal_small_config(name)
+            if cfg["init_data"] in standalone.LAYER_CASES:
+                line, out = run_layer(standalone, weno_x, cfg, name)
+                fields = ("dens", "v")
+            else:
+                line, out = run_ideal(standalone, weno_x, cfg, tmp, name)
+                line += (f", constraint "
+                         f"{an_constraint(standalone, cfg, out):.2e}")
+                fields = ("dens", "v", "w")
+            gold = np.load(golden.ideal_path(name))
+            errs = {f: float(np.abs(gold[f] - a.cpu().numpy()).max()
+                             / np.abs(gold[f]).max())
+                    for f, a in zip(fields, out)}
+            check(max(errs.values()) < 1e-9, f"phase 16a {name}: {errs}")
+            print(f"phase 16a golden {line}; max rel err vs pam_tpu " +
+                  ", ".join(f"{k} {e:.2e}" for k, e in errs.items()),
+                  flush=True)
+
+    #     the AN compute_rhs on the card against the numpy oracle
+    tend, (dens, v, w, geop), oracle, _ = an_case("cuda")
+    got = tend.compute_rhs(*(torch.as_tensor(a, device="cuda")
+                             for a in (dens, v, w, geop)), 5.0)
+    want = spam_oracle.anelastic_rhs_oracle(dens, v, w, geop, 5.0, **oracle)
+    errs = {name: float(np.abs(g.cpu().numpy() - o).max()
+                        / max(1.0, float(np.abs(o).max())))
+            for name, g, o in zip(("dens", "v", "w"), got, want)}
+    check(max(errs.values()) < 1e-10, f"phase 16a oracle: {errs}")
+    print("phase 16a AnelasticTendencies.compute_rhs on the card vs "
+          "tests/spam_oracle.py::anelastic_rhs_oracle (10x8 nens 2): max "
+          "err relative to max(1, |value|) " +
+          ", ".join(f"{k} {e:.2e}" for k, e in errs.items()), flush=True)
+
+    # 16b. the three configs through run_idealized at their files' grids
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, nsteps in AN_LAYER_CONFIGS:
+            cfg = standalone.load_config(os.path.join(
+                ROOT, "configs", f"input_{name}.yaml"))
+            cut = ""
+            if nsteps is not None:
+                cut = f"sim_time {cfg['sim_time']} cut to {nsteps} steps"
+                cfg["sim_time"] = (nsteps - 0.5) * cfg["dtcrm"]
+            if cfg["init_data"] in standalone.LAYER_CASES:
+                line, _ = run_layer(standalone, weno_x, cfg, name)
+                counts[name] = weno_x.weno_edges_x_cuda.launches
+            else:
+                line, out = run_ideal(standalone, weno_x, cfg, tmp, name)
+                counts[name] = weno_x.weno_edges_x_cuda.launches
+                line += (f", constraint "
+                         f"{an_constraint(standalone, cfg, out):.2e}")
+                del out
+            print(f"phase 16b {line}; cut: {cut or 'none'}", flush=True)
+    #     the command line of the double vortex (720 SSPRK3 steps, f64)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "pam_tpu_torch.driver.standalone",
+         "configs/input_doublevortex.yaml"], cwd=ROOT, capture_output=True,
+        text=True, timeout=600)
+    check(proc.returncode == 0 and "Run Time:" in proc.stdout,
+          f"phase 16b command line: rc {proc.returncode} "
+          f"{proc.stdout[-2000:]} {proc.stderr[-2000:]}")
+    print(f"phase 16b python -m pam_tpu_torch.driver.standalone "
+          f"configs/input_doublevortex.yaml: exit {proc.returncode} in "
+          f"{time.perf_counter() - t0:.2f} s; "
+          + " | ".join(proc.stdout.strip().splitlines()[-2:]), flush=True)
+
+    # 16c. the GCM round trip through the port's registry
+    counts["round_trip"] = phase_16c(setup_supercell_mmf, weno_x)
+    return counts
+
+
+def phase_16c(setup_supercell_mmf, weno_x):
+    """The GCM round trip of tests/test_gcm_native_roundtrip.py with the
+    port's registry and state at 65x1x50, nens 128, f64, SPAM+SI with
+    Kessler: each GCM step the CRM state is copied onto the card from the
+    registry views of the GCM's arrays (mirrored read-write, with one more
+    that the CRM does not touch), advanced by gcm_step and written back
+    through the views. Checks the views zero-copy, the GCM's arrays
+    untouched until the write-back, validate, the dirty flags on exactly
+    the written fields, the B1 count, and the final state bit for bit
+    equal to the same steps without the registry. Returns the B1 count."""
+    from pam_tpu_torch.interface import HostDataManager
+    drv, state = setup_supercell_mmf(
+        **{**FULL, "dt_gcm": ROUND_TRIP_DT_GCM}, nens=ROUND_TRIP_NENS,
+        dtype=torch.float64, device="cuda")
+    init = {k: v.clone() for k, v in state.items()}
+    dm = HostDataManager()
+    dm.finalize()
+    nens, nz, _, nx = state["temp"].shape
+    for name, n in (("nens", nens), ("nz", nz), ("nx", nx)):
+        dm.register_dimension(name, n)
+    host = {name: np.array(state[name].cpu().numpy(), dtype=np.float64)
+            for name in ROUND_TRIP_FIELDS}
+    host["gcm_surface_flux"] = np.ones((nens, nx))
+    for name, a in host.items():
+        dm.mirror_array(name, a, desc=name, readonly=False)
+    h2d, step_ms, d2h = [], [], []
+    crm = int(round(ROUND_TRIP_DT_GCM / drv.dt_crm_phys))
+    weno_x.weno_edges_x_cuda.launches = 0
+    for _ in range(ROUND_TRIP_STEPS):
+        dm.clean_all_entries()
+        views = {name: dm.get(name) for name in ROUND_TRIP_FIELDS}
+        before = {name: host[name].copy() for name in ROUND_TRIP_FIELDS}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for name in ROUND_TRIP_FIELDS:
+            check(views[name].ctypes.data == host[name].ctypes.data,
+                  f"phase 16c: the view of {name} is not zero-copy")
+            state[name] = torch.tensor(views[name], dtype=state[name].dtype,
+                                       device="cuda")
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        state = drv.gcm_step(state)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        for name in ROUND_TRIP_FIELDS:
+            check(np.array_equal(host[name], before[name]),
+                  f"phase 16c: the step wrote the GCM's {name}")
+            views[name][...] = state[name].cpu().numpy()
+        t3 = time.perf_counter()
+        h2d.append((t1 - t0) * 1e3)
+        step_ms.append((t2 - t1) * 1e3)
+        d2h.append((t3 - t2) * 1e3)
+        for name in ROUND_TRIP_FIELDS:
+            check(dm.validate(name) == 0, f"phase 16c: {name} non-finite")
+        check(all(dm.entry_dirty(name) for name in ROUND_TRIP_FIELDS)
+              and not dm.entry_dirty("gcm_surface_flux"),
+              "phase 16c: the dirty flags are not those of the written "
+              "fields")
+    launches = weno_x.weno_edges_x_cuda.launches
+    check(launches == ROUND_TRIP_STEPS * crm * WENO_CALLS_PER_STEP,
+          f"phase 16c: {launches} B1 launches")
+    wmax = healthy(state, "phase 16c")
+    for name in ROUND_TRIP_FIELDS:
+        check(np.array_equal(host[name], state[name].cpu().numpy()),
+              f"phase 16c: the GCM's {name} is not the final state")
+    plain = init
+    for _ in range(ROUND_TRIP_STEPS):
+        plain = drv.gcm_step(plain)
+    differ = [k for k in plain if not torch.equal(plain[k], state[k])]
+    check(not differ, f"phase 16c: the round trip differs from the run "
+          f"without the registry in {differ}")
+    mib = sum(host[name].nbytes for name in ROUND_TRIP_FIELDS) / 2**20
+    print(f"phase 16c GCM round trip through the port's registry, 65x1x50 "
+          f"nens {nens} f64 SPAM+SI Kessler, {ROUND_TRIP_STEPS} GCM steps "
+          f"of {ROUND_TRIP_DT_GCM:g} s ({crm} CRM steps each), "
+          f"{len(ROUND_TRIP_FIELDS)} fields of {mib:.1f} MiB in all each "
+          f"way: ms per GCM step host-to-device " +
+          " ".join(f"{t:.2f}" for t in h2d) + ", gcm_step " +
+          " ".join(f"{t:.2f}" for t in step_ms) + ", device-to-host " +
+          " ".join(f"{t:.2f}" for t in d2h) + f"; B1 {launches}, views "
+          "zero-copy, dirty flags on the written fields only, validate 0, "
+          f"bit-equal to the run without the registry, |w|max {wmax:.3f}",
+          flush=True)
+    dm.finalize()
+    return launches
 
 
 def main():
@@ -1146,6 +1423,7 @@ def main():
     launches_3d = phase_15(standalone, weno_x, golden,
                            (setup_supercell_mmf, state_from_numpy,
                             gcm_forcing, weno_count))
+    launches_16 = phase_16(standalone, weno_x, golden, setup_supercell_mmf)
 
     # the kernels' record: float32 times at the main path's shapes (B4
     # with cloud, rain and ice each at half of the points); no single
@@ -1180,7 +1458,10 @@ def main():
          "max_abs_err": max(errs.values()),
          "ms": k32, "plain_ms": p32, "bound_ms": b1_bound[0],
          "bound_by": b1_bound[1], "library_ms": None,
-         "launches_3d": launches_3d},
+         "launches_3d": launches_3d,
+         "launches_anelastic": launches_16["risingbubble_an"],
+         "launches_layer": launches_16["doublevortex"],
+         "launches_gcm_round_trip": launches_16["round_trip"]},
         {"name": "p3_part2", "route": "cuda",
          "source": "pam_tpu_torch/csrc/p3_part2.cu",
          "replaces": "pam_tpu/physics/p3/main.py:780",

@@ -1,7 +1,7 @@
 """Standalone driver: configured MMF runs, as the mmf_simplified executable
-runs them, and the idealized SPAM runs, x-z and 3-D (port of
-pam_tpu/driver/standalone.py:24-125, :160-429 and :432-449; ref
-standalone/mmf_simplified/driver.cpp).
+runs them, and the idealized SPAM runs: x-z, anelastic, 3-D and the
+shallow-water layer models (port of pam_tpu/driver/standalone.py:24-449;
+ref standalone/mmf_simplified/driver.cpp).
 
 The MMF config keys (sim_time, crm_nx/ny/nz, nens, xlen/ylen/zlen,
 vcoords, dt_gcm, dt_crm_phys, crm_per_phys, out_freq, out_prefix,
@@ -231,6 +231,10 @@ DIFFUSION_KEYS = ("scalar_horiz_diffusion_coeff",
                   "velocity_div_vert_diffusion_coeff")
 
 
+# the init_data of the layer models (run_layer)
+LAYER_CASES = ("doublevortex", "bickleyjet")
+
+
 def is_idealized(cfg) -> bool:
     return bool(cfg.get("idealized", False)) or \
         cfg.get("mode") == "idealized"
@@ -372,12 +376,57 @@ def idealized_setup_3d(cfg, device="cuda"):
     return tend, step, (dens, v, w), geop, dt, nsteps
 
 
+def _anelastic(cfg, tc, moist, geom, thermo, vs, v, w):
+    """The anelastic variants (PAMC_HAMIL=an | man;
+    pam_tpu/driver/standalone.py:311-350): rho pinned to the reference
+    profile, the pressure projection after every symplectic evaluation, no
+    acoustic CFL. Returns (tend, dens, v, w): the tendencies, built
+    without diffusion or numerics knobs as pam_tpu builds them, and the
+    anelastic initial state, its winds (v, w) projected."""
+    from ..spam import si as si_mod
+    from ..spam import testcases as tcs
+    from ..spam.anelastic import (AnelasticPressureSolver,
+                                  AnelasticTendencies, ManTendencies,
+                                  project_initial)
+    name, hamil = cfg["init_data"], cfg["hamil"]
+    if not hasattr(tc, "refrho_f"):
+        raise ValueError(
+            f"init_data {name!r} has no reference state for hamil=an")
+    if hamil == "man" and not moist:
+        raise ValueError("hamil=man needs a moist init_data")
+    ref = si_mod.build_reference_state(
+        geom, thermo, vs, lambda z: tc.refrho_f(z, thermo),
+        lambda z: tc.refentropicdensity_f(z, thermo),
+        lambda z: tc.refnsq_f(z, thermo), tc.g)
+    psolver = AnelasticPressureSolver.build(geom, ref["rho_pi"],
+                                            ref["rho_di"])
+    cls = ManTendencies if hamil == "man" else AnelasticTendencies
+    tend = _with_reference(cls(geom=geom, varset=vs, thermo=thermo,
+                               grav=tc.g, psolver=psolver),
+                           ref, geom.dtype, geom.device)
+    # the anelastic initial condition: rho = refrho (extrudedmodel.h:
+    # 5344-5347; MAN: MoistEulerTestCase rho_f -> refrho_f under
+    # PAMC_MAN, :5550-5552)
+    rows = [np.broadcast_to(ref["dens"][0][:, :, None],
+                            (geom.nens, geom.nz, geom.nx)),
+            tcs.project_n1form(lambda x, z: tc.refrho_f(z, thermo) *
+                               tc.entropicvar_f(x, z, thermo), geom)]
+    if moist:
+        rows.append(tcs.project_n1form(
+            lambda x, z: tc.rhov_f(x, z, thermo), geom))
+    dens = torch.as_tensor(np.stack(rows), dtype=geom.dtype,
+                           device=geom.device)
+    v, w = project_initial(psolver, v, w)
+    return tend, dens, v, w
+
+
 def idealized_setup(cfg, device="cuda"):
     """The pieces of an idealized run of config ``cfg`` on ``device``
     (pam_tpu/driver/standalone.py:258-402): (tend, step, (dens, v, w),
     geop, dt, nsteps), where ``step(dens, v, w)`` takes one step of the
     config's integrator; crm_ny > 1 builds the 3-D run
-    (idealized_setup_3d)."""
+    (idealized_setup_3d), hamil an or man the anelastic model
+    (_anelastic). A layer test case raises: layer_setup builds it."""
     from ..spam import si as si_mod
     from ..spam import testcases as tcs
     from ..spam.geometry import ExtrudedGeometry
@@ -387,18 +436,11 @@ def idealized_setup(cfg, device="cuda"):
     from ..spam.varset import VariableSet
 
     name = cfg["init_data"]
-    if name in ("doublevortex", "bickleyjet"):
-        raise NotImplementedError(
-            f"init_data {name!r} runs the layer model (run_layer), which is "
-            "not ported yet (ROADMAP queue A, 'spam/anelastic.py and "
-            "spam/layer.py')")
+    if name in LAYER_CASES:
+        raise ValueError(f"init_data {name!r} runs the layer model: "
+                         "layer_setup or run_layer")
     if cfg.get("crm_ny", 1) > 1:
         return idealized_setup_3d(cfg, device)
-    if cfg.get("hamil") in ("an", "man"):
-        raise NotImplementedError(
-            f"hamil {cfg['hamil']!r} runs the anelastic model, which is not "
-            "ported yet (ROADMAP queue A, 'spam/anelastic.py and "
-            "spam/layer.py')")
     tc, moist = tcs.testcase_from_string(name)
     nx, nz = cfg["crm_nx"], cfg["crm_nz"]
     nens = cfg.get("nens", 1)
@@ -428,6 +470,9 @@ def idealized_setup(cfg, device="cuda"):
     knobs = {k: float(cfg[k]) for k in DIFFUSION_KEYS if k in cfg}
     tend = SpamTendencies(geom=geom, varset=vs, thermo=thermo, grav=tc.g,
                           **knobs, **_numerics_knobs(cfg))
+    if cfg.get("hamil") in ("an", "man"):
+        tend, dens, v, w = _anelastic(cfg, tc, moist, geom, thermo, vs, v,
+                                      w)
 
     tstype = cfg.get("tstype", "ssprk3")
     dt = idealized_dt(cfg)
@@ -467,11 +512,60 @@ def run_idealized(cfg: dict, verbose: bool = True, device="cuda"):
     """Idealized SPAM run (the idealized branch of driver.cpp, test case
     by init_data, extrudedmodel.h testcase_from_string) on ``device``;
     crm_ny > 1 runs the 3-D model (idealized_setup). Returns the final
-    (dens, v, w).
+    (dens, v, w); a layer test case (doublevortex, bickleyjet) runs
+    through run_layer and returns (dens, v).
     With ``out_prefix`` set, writes the conservation statistics to
     ``<out_prefix>_stats.nc`` at t=0 and every stat_freq seconds of
-    simulated time."""
+    simulated time (not for the layer models, as in pam_tpu)."""
+    if cfg["init_data"] in LAYER_CASES:
+        return run_layer(cfg, verbose, device)
     return _run_idealized(cfg, idealized_setup(cfg, device), verbose)
+
+
+def layer_setup(cfg, device="cuda"):
+    """The pieces of a layer-model run of config ``cfg`` on ``device``
+    (pam_tpu/driver/standalone.py:128-146): (model, step, (dens, v),
+    (hs, coriolis), dt, nsteps), where ``step(dens, v)`` takes one SSPRK3
+    step. The test case is init_data, the model swe or tswe; float64
+    unless the config sets ``f64: false``."""
+    from ..spam.layer import LAYER_TESTCASES, LayerModel, setup_double_vortex
+    tc = LAYER_TESTCASES[cfg.get("init_data", "doublevortex")]()
+    variant = cfg.get("model", "swe")
+    if variant not in ("swe", "tswe"):
+        raise ValueError(f"unknown layer model {variant!r} "
+                         "(expected 'swe' or 'tswe')")
+    m = LayerModel(nx=cfg["crm_nx"], ny=cfg.get("crm_ny", cfg["crm_nx"]),
+                   nens=cfg.get("nens", 1), Lx=tc.Lx, Ly=tc.Ly, g=tc.g,
+                   variant=variant, ndens=2 if variant == "tswe" else 1,
+                   dtype=torch.float64 if cfg.get("f64", True)
+                   else torch.float32, device=device)
+    dens, v, hs, cor = setup_double_vortex(m, tc)
+    dt = cfg.get("dtcrm", 120.0)
+    nsteps = int(np.ceil(cfg["sim_time"] / dt))
+
+    def step(d, vv):
+        return m.ssprk3_step(d, vv, hs, cor, dt)
+    return m, step, (dens, v), (hs, cor), dt, nsteps
+
+
+def run_layer(cfg: dict, verbose: bool = True, device="cuda"):
+    """Layer-model (SWE/TSWE) run, doublevortex or bickleyjet
+    (layermodel.h:1272-1404; pam_tpu/driver/standalone.py:128-157), on
+    ``device``; prints the energy and the mass every stat_freq seconds
+    and returns the final (dens, v)."""
+    m, step, (dens, v), (hs, cor), dt, nsteps = layer_setup(cfg, device)
+    stats_every = max(1, int(cfg.get("stat_freq", cfg["sim_time"] / 10) /
+                             dt))
+    t0 = time.time()
+    for n in range(nsteps):
+        dens, v = step(dens, v)
+        if verbose and (n + 1) % stats_every == 0:
+            st = m.statistics(dens, v, hs, cor)
+            print(f"step {n+1} t={dt*(n+1):9.2f}s  E={float(st['E'][0]):.8e} "
+                  f"mass={float(st['mass'][0, 0]):.8e}", flush=True)
+    if verbose:
+        print(f"Run Time: {time.time() - t0}")
+    return dens, v
 
 
 def run_idealized_3d(cfg: dict, verbose: bool = True, device="cuda"):

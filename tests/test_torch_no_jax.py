@@ -10,7 +10,12 @@ import and run_idealized runs configs/input_gravitywave.yaml cut to 8x8
 for 2 SI steps; the 3-D modules import, run_idealized_3d runs
 configs/input_supercell3d.yaml cut to 6x4x6 for 2 SI steps, one
 coupled ny = 4 SPAM+Kessler CRM step runs, and the 3-D oracle case that
-chip_smoke.py imports from tests/torch_spam3d_case.py builds."""
+chip_smoke.py imports from tests/torch_spam3d_case.py builds; the
+anelastic and layer modules and the GCM bridge import, run_idealized
+takes one step of configs/input_risingbubble_an.yaml cut to 8x8 and one
+of configs/input_doublevortex.yaml cut to 8x8, the anelastic oracle case
+of tests/torch_anelastic_case.py builds, and one GCM step of a tiny
+SPAM+Kessler CRM makes the round trip through the port's registry."""
 
 import os
 import subprocess
@@ -98,6 +103,39 @@ sys.path.insert(0, "tests")
 from torch_spam3d_case import oracle_case_3d
 tend, (dens, v, w, geop), _ = oracle_case_3d("cpu")
 assert isinstance(tend, extruded3d.Tendencies3D) and dens.shape[0] == 3
+from pam_tpu_torch import interface
+from pam_tpu_torch.spam import anelastic, layer
+cfg = standalone.load_config("configs/input_risingbubble_an.yaml")
+cfg.update(crm_nx=8, crm_nz=8, sim_time=cfg["dtcrm"])
+dens, v, w = standalone.run_idealized(cfg, verbose=False, device="cpu")
+assert dens.shape == (2, 1, 8, 8) and float(dens[0].std()) > 0.0
+assert all(bool(torch.isfinite(a).all()) for a in (dens, v, w))
+cfg = standalone.load_config("configs/input_doublevortex.yaml")
+cfg.update(crm_nx=8, crm_ny=8, sim_time=cfg["dtcrm"])
+dens, v = standalone.run_idealized(cfg, verbose=False, device="cpu")
+assert dens.shape == (1, 1, 8, 8) and v.shape == (2, 1, 8, 8)
+assert all(bool(torch.isfinite(a).all()) for a in (dens, v))
+from torch_anelastic_case import an_case
+tend, (dens, v, w, geop), _, _ = an_case("cpu", "man")
+assert isinstance(tend, anelastic.ManTendencies) and dens.shape[0] == 3
+dm = interface.HostDataManager()
+dm.finalize()
+drv, state = setup_supercell_mmf(nx=8, ny=1, nz=8, nens=1, xlen=16000.0,
+                                 ylen=64000.0, zlen=16000.0, dt_gcm=20.0,
+                                 dt_crm_phys=20.0, dtype=torch.float64,
+                                 device="cpu", dycore="spam")
+host = {k: np.array(state[k].numpy()) for k in ("temp", "water_vapor", "wvel")}
+for k, a in host.items():
+    dm.mirror_array(k, a, readonly=False)
+views = {k: dm.get(k) for k in host}
+for k in host:
+    state[k] = torch.tensor(views[k])
+state = drv.gcm_step(state)
+for k in host:
+    views[k][...] = state[k].numpy()
+    assert dm.validate(k) == 0 and dm.entry_dirty(k)
+assert np.array_equal(host["temp"], state["temp"].numpy())
+dm.finalize()
 loaded = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
           or m == "pam_tpu" or m.startswith("pam_tpu.")]
 assert all(sys.modules[m] is None for m in loaded), loaded

@@ -11,9 +11,10 @@ configs/input_*.yaml cut to 16x12 cells and 2 members
   (twobubbles, moistrisingbubble) go non-finite within 10 steps in both
   packages, and stay finite at the acoustic rule's step;
 * the conservation statistics file, the B1 launch count (0 on the CPU),
-  main() on an idealized file, and the refusals of what is not ported
-  (the layer model, anelastic; the 3-D configs run in
-  tests/test_torch_spam3d_runs.py).
+  main() on an idealized file, the unknown tstype and the missing
+  reference state refused (the 3-D configs run in
+  tests/test_torch_spam3d_runs.py, the anelastic and layer ones in
+  tests/test_torch_anelastic.py and tests/test_torch_layer.py).
 """
 
 import os
@@ -34,7 +35,6 @@ import make_torch_golden_init as golden  # noqa: E402
 
 torch.set_num_threads(1)
 
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TRAJ_TOL = 1e-9
 STABLE = tuple(golden.IDEAL_STEPS)
 UNSTABLE = ("twobubbles", "moistrisingbubble")
@@ -171,24 +171,6 @@ def test_main_runs_an_idealized_file(tmp_path, monkeypatch, capsys):
         assert "Run Time:" in out and " E=" in out
     assert [c["init_data"] for c in seen] == ["gravitywave", "risingbubble"]
     assert seen[0]["mode"] == "idealized" and seen[1]["idealized"] is True
-
-
-@pytest.mark.parametrize("name,why", [
-    ("input_doublevortex.yaml", "layer model"),
-    ("input_bickleyjet.yaml", "layer model"),
-    ("input_risingbubble_an.yaml", "anelastic")])
-def test_later_items_are_refused(name, why):
-    """Configs whose modules are not ported raise with their reason and
-    the ROADMAP item; nothing falls back."""
-    cfg = tstandalone.load_config(os.path.join(ROOT, "configs", name))
-    assert tstandalone.is_idealized(cfg)
-    with pytest.raises(NotImplementedError, match=why) as err:
-        tstandalone.run_idealized(cfg, verbose=False, device="cpu")
-    assert "ROADMAP queue A" in str(err.value)
-    man = dict(cfg, hamil="man")
-    if name == "input_risingbubble_an.yaml":
-        with pytest.raises(NotImplementedError, match="anelastic"):
-            tstandalone.run_idealized(man, verbose=False, device="cpu")
 
 
 def test_unknown_tstype_and_missing_reference_state():

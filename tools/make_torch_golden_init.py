@@ -37,13 +37,21 @@
   runs float32);
 * mmf_spam3d_small: the coupled 3-D SPAM+SI (pressure-gravity) step with
   Kessler at 12x8x12 cells and 2 members (SPAM3D_KW): its _init file and
-  3 CRM steps run jitted (mmf_spam3d_small.npz, with vvel).
+  3 CRM steps run jitted (mmf_spam3d_small.npz, with vvel);
+* ideal_<name>_small.npz for the anelastic and layer-model runs
+  (AN_LAYER): configs/input_risingbubble_an.yaml (AN, SSPRK3), the
+  moist rising bubble with hamil man (MAN), configs/input_doublevortex.yaml
+  (SWE) and its model tswe form, configs/input_bickleyjet.yaml (SWE),
+  cut to 16x12 (x-z) or 16x16 (layer) cells and 2 members, 10 steps of
+  the file's own step: the final (dens, v, w), or (dens, v) of a layer
+  run.
 
 tests/test_torch_mmf.py, tests/test_torch_awfl.py,
 tests/test_torch_standalone.py and tests/test_torch_spam3d_runs.py
 rebuild the _init files and check them unchanged;
-tests/test_torch_spam_ideal_runs.py and tests/test_torch_spam3d_runs.py
-check the ideal_ files against pam_tpu's run.
+tests/test_torch_spam_ideal_runs.py, tests/test_torch_spam3d_runs.py,
+tests/test_torch_anelastic.py and tests/test_torch_layer.py check the
+ideal_ files against pam_tpu's run.
 
 Usage: python tools/make_torch_golden_init.py [name ...]
 (every config when no name is given; ideal_<case> for an idealized one)
@@ -78,6 +86,15 @@ IDEAL3D_SMALL = dict(crm_nx=10, crm_ny=8, crm_nz=10, nens=2)
 IDEAL3D_STEPS = {"risingbubble3d": 4, "supercell3d": 3}
 IDEAL3D_EXTRA = {"supercell3d": dict(f64=True)}
 IDEAL3D_GOLDEN = tuple(IDEAL3D_STEPS)
+# the anelastic and layer-model cuts: golden name -> (config file, what
+# the cut sets besides the grid), the layer grid, the steps of each
+AN_LAYER = {"risingbubble_an": ("risingbubble_an", {}),
+            "moistrisingbubble_man": ("moistrisingbubble", dict(hamil="man")),
+            "doublevortex": ("doublevortex", {}),
+            "doublevortex_tswe": ("doublevortex", dict(model="tswe")),
+            "bickleyjet": ("bickleyjet", {})}
+LAYER_SMALL = dict(crm_nx=16, crm_ny=16, nens=2)
+AN_LAYER_STEPS = dict.fromkeys(AN_LAYER, 10)
 # the coupled 3-D step: dx = dy = 2 km
 SPAM3D_KW = dict(nx=12, ny=8, nz=12, nens=2, xlen=24000.0, ylen=16000.0,
                  zlen=20000.0, micro="kessler", sgs="none", dt_gcm=200.0,
@@ -106,31 +123,36 @@ def pamc_small_kwargs(device="cpu"):
 
 def ideal_small_config(name, nsteps=None):
     """configs/input_<name>.yaml cut by IDEAL_SMALL (IDEAL3D_SMALL and
-    IDEAL3D_EXTRA for a 3-D config) to ``nsteps`` steps (IDEAL_STEPS or
-    IDEAL3D_STEPS by default) of the config's own step: sim_time is set
-    half a step short of nsteps steps, so that both packages'
-    ceil(sim_time / dt) takes exactly nsteps."""
-    from pam_tpu_torch.driver.standalone import idealized_dt, load_config
+    IDEAL3D_EXTRA for a 3-D config; AN_LAYER's file and keys, and
+    LAYER_SMALL for a layer model, for one of AN_LAYER) to ``nsteps``
+    steps (IDEAL_STEPS, IDEAL3D_STEPS or AN_LAYER_STEPS by default) of the
+    config's own step: sim_time is set half a step short of nsteps steps,
+    so that both packages' ceil(sim_time / dt) takes exactly nsteps."""
+    from pam_tpu_torch.driver.standalone import (LAYER_CASES, idealized_dt,
+                                                 load_config)
+    stem, extra = AN_LAYER.get(name, (name, {}))
     cfg = load_config(os.path.join(os.path.dirname(GOLDEN), "..", "configs",
-                                   f"input_{name}.yaml"))
+                                   f"input_{stem}.yaml"))
+    layer = cfg["init_data"] in LAYER_CASES
     if name in IDEAL3D_STEPS:
         cfg.update(IDEAL3D_SMALL, **IDEAL3D_EXTRA.get(name, {}))
         steps = IDEAL3D_STEPS
     else:
-        cfg.update(IDEAL_SMALL)
-        steps = IDEAL_STEPS
+        cfg.update(LAYER_SMALL if layer else IDEAL_SMALL, **extra)
+        steps = AN_LAYER_STEPS if name in AN_LAYER else IDEAL_STEPS
     nsteps = steps[name] if nsteps is None else nsteps
-    cfg["sim_time"] = (nsteps - 0.5) * idealized_dt(cfg)
+    cfg["sim_time"] = (nsteps - 0.5) * (cfg["dtcrm"] if layer
+                                        else idealized_dt(cfg))
     return cfg
 
 
 def ideal_trajectory(name):
     """pam_tpu's run_idealized of ideal_small_config(name): the final
-    dens, v and w, numpy float64."""
+    dens, v and w (dens and v of a layer model), numpy float64."""
     import numpy as np
     from pam_tpu.driver.standalone import run_idealized
-    dens, v, w = run_idealized(ideal_small_config(name), verbose=False)
-    return {"dens": np.asarray(dens), "v": np.asarray(v), "w": np.asarray(w)}
+    out = run_idealized(ideal_small_config(name), verbose=False)
+    return {k: np.asarray(a) for k, a in zip(("dens", "v", "w"), out)}
 
 
 def ideal_path(name):
@@ -202,7 +224,8 @@ def main(argv=None):
     jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_enable_x64", True)
     names = (sys.argv[1:] if argv is None else argv) or \
-        list(CONFIGS) + [f"ideal_{n}" for n in IDEAL_GOLDEN + IDEAL3D_GOLDEN]
+        list(CONFIGS) + [f"ideal_{n}" for n in IDEAL_GOLDEN + IDEAL3D_GOLDEN
+                         + tuple(AN_LAYER)]
     for name in names:
         if name.startswith("ideal_"):
             case = name[len("ideal_"):]
