@@ -17,7 +17,16 @@ shallow-water layer models and the GCM bridge (phase 16): B1 at their
 shapes, their five goldens and the anelastic compute_rhs against the
 numpy oracle (16a), configs/input_{risingbubble_an,doublevortex,
 bickleyjet}.yaml at their files' grids (16b) and the GCM round trip
-through interface.py's registry at 65x1x50 nens 128 (16c).
+through interface.py's registry at 65x1x50 nens 128 (16c); and the
+sharded paths over torch.distributed (phase 17): B1's padded-input mode
+against its plain version and beside its wrapping mode (17a), then 4
+ranks on this one card over host-staged gloo (tests/
+torch_sharding_case.py::chip_phase): the comm primitives on CUDA tensors
+(17b), the x-sharded SPAM+SI Kessler, P3+SHOC, AWFL+Kessler and coupled
+3-D steps in f64 and Tendencies3D on (y 2, x 2) against the same steps
+unsharded on the card (17c), and configs/input_mmf_production.yaml's CRM
+step (65x1x50, nens 512, f32) ensemble-sharded, 128 members a rank, with
+no collective (17d).
 
 Usage (from the root of a checkout, on a machine with the card):
 
@@ -29,7 +38,11 @@ plain version, ms per call of the kernel and of the plain version in
 float32, and the least time the card could take for the same bytes and
 operations; for P3 part 2 the plain version is its table stage and core
 together; for the AWFL flux those of the z call, the slower half of its
-launches, with the x call's beside them), the line before it the two WENO
+launches, with the x call's beside them; launches_sharded, one rank's
+launches on its sharded path in phase 17: B1 in the padded mode on the
+x-sharded SPAM+SI step, B4 on the ensemble-sharded production step, B3
+on the x-sharded AWFL step; for B1 also ms_padded and bound_ms_padded,
+the padded mode at the main path's shape), the line before it the two WENO
 kernels' times beside those of the kernels they replaced, the last line
 {"ok": true, "device": {...}}. A kernel's time is device time: its
 launches are replayed from a CUDA graph, because launched one by one from
@@ -1202,6 +1215,297 @@ def phase_16c(setup_supercell_mmf, weno_x):
     return launches
 
 
+# 17a: B1's padded mode at the unsharded main path's shape and at the
+# sharded ones: the slab's densities at nx 64 over 2 x shards (5
+# densities, nens 8, 50 levels: 2,000 rows of 32) and the 3-D 32x32x50
+# nens 4 over 4 x shards (5 densities, 4 members, 50 levels, 32 y rows:
+# 32,000 rows of 8)
+B1_PADDED_CASES = ((32000, 65), (2000, 32), (32000, 8))
+SHARD_WORLD = 4
+SHARD_TOL = 1e-11     # 17c, rtol = atol, as pam_tpu's tests/test_halo.py
+# 17d: configs/input_mmf_production.yaml's CRM step. Each rank's members
+# are held bit for bit against the same members stepped unsharded by a
+# driver of nens/SHARD_WORLD members, and against the unsharded nens 512
+# run within PROD_TOL times that run's own drift from a start temperature
+# 1 ulp away, max |d| / max |ref| a field (f32: the batch of 128 takes
+# other reduction orders than the batch of 512)
+PROD_CFG = os.path.join(ROOT, "configs", "input_mmf_production.yaml")
+PROD_TOL = 10.0
+
+
+def phase_17a(weno, weno_x, comm):
+    """B1's padded mode against its plain version and beside the wrapping
+    mode; returns {(dtype, rows, nx): (padded ms, wrapping ms, padded
+    bound ms, bound by, max abs err, plain ms)}."""
+    out = {}
+    for dtype in (torch.float32, torch.float64):
+        tb = weno.weno_tables(5, dtype)
+        size = torch.tensor([], dtype=dtype).element_size()
+        for rows, nx in B1_PADDED_CASES:
+            f = field(rows, nx, dtype, seed=rows + nx)
+            pad = comm.halo_pad(f, 2).contiguous()
+            got = weno_x.weno_edges_x_cuda(pad, tb, padded=True)
+            torch.cuda.synchronize()
+            ref = weno_x.weno_edges_padded_reference(pad, tb)
+            wrap = weno_x.weno_edges_x_cuda(f, tb)
+            err = 0.0
+            for r, g, w in zip(ref, got, wrap):
+                e = float((r - g).abs().max())
+                check(e / max(float(r.abs().max()), 1e-300) < TOL[dtype],
+                      f"17a padded vs plain {dtype} ({rows},{nx}): {e:.3e}")
+                check(torch.equal(g, w), f"17a padded vs wrapping {dtype} "
+                      f"({rows},{nx}) differ")
+                err = max(err, e)
+            bound = bound_ms(*weno_x.weno_x_work(rows, nx, size, tb,
+                                                 padded=True), dtype)
+            out[(name_of(dtype), rows, nx)] = (
+                graph_ms(lambda: weno_x.weno_edges_x_cuda(pad, tb,
+                                                          padded=True), 400),
+                graph_ms(lambda: weno_x.weno_edges_x_cuda(f, tb), 400),
+                bound[0], bound[1], err,
+                cuda_ms(lambda: weno_x.weno_edges_padded_reference(pad, tb),
+                        10))
+    return out
+
+
+def _worst(ref, got, keys):
+    """Largest |got - ref| / max(|ref|, 1) over keys (the rtol = atol
+    criterion of pam_tpu's tests)."""
+    return max(float(np.abs(got[k] - ref[k]).max()) /
+               max(float(np.abs(ref[k]).max()), 1.0) for k in keys)
+
+
+def phase_17(standalone, weno, weno_x):
+    """The sharded paths: 17a B1's padded mode; 17b-d on SHARD_WORLD
+    ranks (tests/torch_sharding_case.py::chip_phase): host-staged gloo
+    on this one card, NCCL where every rank has a card of its own; 17d
+    on PROD_CFG. Returns the kernels' launches on the sharded paths, the
+    backend and 17a's record."""
+    from pam_tpu_torch.convert import state_from_numpy
+    from pam_tpu_torch.driver.mmf import setup_supercell_mmf
+    from pam_tpu_torch.modules import gcm_forcing
+    from pam_tpu_torch.parallel import comm, mesh as tmesh
+    import torch_sharding_case as case
+    from torch_spam3d_case import oracle_case_3d
+    b1 = phase_17a(weno, weno_x, comm)
+    print("phase 17a B1 padded mode, us/call padded / wrapping (padded "
+          "bound) / plain, max abs err vs plain: " + ", ".join(
+              f"{d}{(r, n)} {p * 1e3:.2f} / {w * 1e3:.2f} ({b * 1e3:.2f} "
+              f"by {by}) / {pl * 1e3:.2f} {e:.2e}"
+              for (d, r, n), (p, w, b, by, e, pl) in b1.items()),
+          flush=True)
+
+    # the unsharded runs on the card, and their start states for the ranks
+    refs, unsharded = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = {}
+        for name, kw, nsteps, _ in case.CHIP_CASES:
+            drv, st = case.setup("cuda", torch.float64, **kw)
+            paths[name] = os.path.join(tmp, name + ".npz")
+            np.savez(paths[name], **case._np(st))
+            case._reset()
+            refs[name] = []
+            for _ in range(nsteps):
+                st = drv.crm_phys_step(st)
+                refs[name].append(case._np(st))
+            torch.cuda.synchronize()
+            unsharded[name] = case._read()
+            if name == "awfl_kessler":
+                # the unsharded run's own drift from a start temperature
+                # one unit in the last place away
+                st = state_from_numpy(dict(np.load(paths[name])), "cuda",
+                                      torch.float64)
+                st["temp"] = st["temp"] * (1.0 + 2.0 ** -52)
+                ulp_runs = []
+                for _ in range(nsteps):
+                    st = drv.crm_phys_step(st)
+                    ulp_runs.append(case._np(st))
+            del drv, st
+        tend, x3, _ = oracle_case_3d("cuda", **case.RHS_3D)
+        rhs_ref = [r.cpu().numpy() for r in tend.compute_rhs(
+            *[torch.as_tensor(a, device="cuda") for a in x3], 0.5)]
+        # 17d: the production configuration unsharded, PROD_STEPS steps
+        cfg = standalone.load_config(PROD_CFG)
+        drv, st = setup_supercell_mmf(**standalone.mmf_setup_kwargs(
+            cfg, "cuda"))
+        st = gcm_forcing.compute_gcm_forcing_tendencies(drv.coupler, st,
+                                                        drv.dt_gcm)
+        paths["production"] = os.path.join(tmp, "production.npz")
+        np.savez(paths["production"], **case._np(st))
+        torch.cuda.synchronize()
+        ticks = [time.perf_counter()]
+        for _ in range(case.PROD_STEPS):
+            st = drv.crm_phys_step(st)
+            torch.cuda.synchronize()
+            ticks.append(time.perf_counter())
+        prod_ms = np.diff(ticks) * 1e3
+        paths["production_ref"] = os.path.join(tmp, "production_ref.npz")
+        np.savez(paths["production_ref"], **case._np(st))
+        paths["production_cfg"] = PROD_CFG
+        prod_nens = drv.coupler.nens
+        # the unsharded run's own drift from a start temperature one unit
+        # in the last place away: the scale of 17d's tolerance
+        start = state_from_numpy(dict(np.load(paths["production"])), "cuda",
+                                 drv.coupler.dtype)
+        st_ulp = dict(start, temp=start["temp"] * (
+            1.0 + float(torch.finfo(drv.coupler.dtype).eps)))
+        for _ in range(case.PROD_STEPS):
+            st_ulp = drv.crm_phys_step(st_ulp)
+        ref = np.load(paths["production_ref"])
+        prod_drift = {k: float(np.abs(st_ulp[k].cpu().numpy() - ref[k]).max())
+                      / max(float(np.abs(ref[k]).max()), 1e-30)
+                      for k in ref.files
+                      if st_ulp[k].is_floating_point()}
+        # each rank's members stepped alone by a driver of that many
+        nloc = prod_nens // SHARD_WORLD
+        cfg["nens"] = nloc
+        drv, _ = setup_supercell_mmf(**standalone.mmf_setup_kwargs(
+            cfg, "cuda"))
+        for e in range(SHARD_WORLD):
+            st = {k: (v[e * nloc:(e + 1) * nloc] if v.ndim else v)
+                  for k, v in start.items()}
+            for _ in range(case.PROD_STEPS):
+                st = drv.crm_phys_step(st)
+            paths[f"production_block{e}"] = os.path.join(
+                tmp, f"production_block{e}.npz")
+            np.savez(paths[f"production_block{e}"], **case._np(st))
+        del drv, st, st_ulp, start
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        res = tmesh.spawn_ranks(case.chip_phase, SHARD_WORLD, timeout=600,
+                                args=(paths,))
+        spawn_s = time.perf_counter() - t0
+
+    # 17b: the primitives on CUDA tensors
+    prims = [r["prims"] for r in res]
+    exact = [k for k in prims[0]["err"] if k not in (
+        "transpose_round_trip", "fft_sh", "ifft_real_sh", "rfft_sh",
+        "irfft_sh")]
+    worst = {k: max(p["err"][k] for p in prims) for k in prims[0]["err"]}
+    check(all(worst[k] == 0.0 for k in exact),
+          f"17b primitives not bit-exact: {worst}")
+    check(all(v < 1e-14 for v in worst.values()),
+          f"17b transforms off: {worst}")
+    backend = res[0]["spam_kessler"]["backend"]
+    where = ("one card, host-staged" if backend == "gloo" else
+             "a card each")
+    print(f"phase 17b comm primitives, {SHARD_WORLD} ranks on {where}, "
+          f"backend {backend}: bit-exact " + ", ".join(exact) +
+          "; the transforms against torch.fft on the whole axis, max rel "
+          "err " + ", ".join(f"{k} {v:.1e}" for k, v in worst.items()
+                             if k not in exact) +
+          f"; collectives {prims[0]['counts']}", flush=True)
+
+    # 17c: the x-sharded steps against the unsharded ones, f64
+    out = res[0]["out"]
+    parts = []
+    for name, kw, nsteps, shape in case.CHIP_CASES:
+        keys = [k for k in case.KEYS + (("vvel",) if kw["ny"] > 1 else ())]
+        if name == "p3_shoc":
+            keys += ["cloud_water", "rain", "ice", "tke"]
+        errs = [_worst(r, o, keys) for r, o in zip(refs[name], out[name])]
+        if name == "awfl_kessler":
+            # AWFL amplifies rounding ~1000x a step (its WENO weights in
+            # flat regions follow rounding noise): the first step is held
+            # at SHARD_TOL, every step within the unsharded run's drift
+            # from a start state one unit in the last place away
+            drift = [_worst(r, u, keys) for r, u in zip(refs[name],
+                                                          ulp_runs)]
+            check(errs[0] < SHARD_TOL and all(
+                e <= max(SHARD_TOL, d) for e, d in zip(errs, drift)),
+                f"17c AWFL: {errs} against the 1-ulp drift {drift}")
+            err = (f"{errs[0]:.1e} after 1 step, {errs[-1]:.1e} after "
+                   f"{nsteps} (1-ulp drift " +
+                   ", ".join(f"{d:.1e}" for d in drift) + ")")
+        else:
+            check(max(errs) < SHARD_TOL, f"17c {name}: {errs}")
+            err = f"{max(errs):.1e}"
+        per_rank = [r[name]["launches"] for r in res]
+        counts = res[0][name]["counts"]
+        check(counts["all_gather"] == 0 and counts["all_to_all"] == 0,
+              f"17c {name}: {counts}")
+        parts.append(f"{name} {kw['nx']}x{kw['ny']}x{kw['nz']} nens "
+                     f"{kw['nens']} on {shape} {nsteps} steps {err}, "
+                     f"collectives a rank {counts}, launches a rank "
+                     f"{per_rank[0]} (unsharded {unsharded[name]})")
+        check(all(p == per_rank[0] for p in per_rank),
+              f"17c {name}: launches differ between ranks {per_rank}")
+    k_sp = res[0]["spam_kessler"]["launches"]
+    check(k_sp["weno_x_padded"] == k_sp["weno_x"]
+          == unsharded["spam_kessler"]["weno_x"] > 0,
+          f"17c SPAM: B1 not in the padded mode {k_sp}")
+    k_p3 = res[0]["p3_shoc"]["launches"]
+    check(k_p3["p3_part2"] == unsharded["p3_shoc"]["p3_part2"] > 0
+          and k_p3["weno_x_padded"] > 0, f"17c P3+SHOC: {k_p3}")
+    k_aw = res[0]["awfl_kessler"]["launches"]
+    check(k_aw["sub_cycles"] == unsharded["awfl_kessler"]["sub_cycles"]
+          and k_aw["awfl_flux"] == unsharded["awfl_kessler"]["awfl_flux"] > 0,
+          f"17c AWFL: {k_aw} vs {unsharded['awfl_kessler']}")
+    k_3d = res[0]["spam3d_kessler"]["launches"]
+    check(0 < k_3d["weno_x_padded"] < k_3d["weno_x"],
+          f"17c 3-D: x padded, y wrapping: {k_3d}")
+    seen = set()
+    for r in res:
+        y, x = r["rhs3d"]["coords"]
+        seen.add((y, x))
+        ny, nx = case.RHS_3D["ny"] // 2, case.RHS_3D["nx"] // 2
+        for got, want in zip(r["rhs3d"]["rhs"], rhs_ref):
+            want = want[..., ny * y:ny * (y + 1), nx * x:nx * (x + 1)]
+            e = float(np.abs(got - want).max()) / max(
+                float(np.abs(want).max()), 1.0)
+            check(e < SHARD_TOL, f"17c compute_rhs (y 2, x 2): {e:.3e}")
+        check(r["rhs3d"]["launches"]["weno_x_padded"] ==
+              r["rhs3d"]["launches"]["weno_x"] == 6,
+              f"17c compute_rhs launches {r['rhs3d']['launches']}")
+    check(len(seen) == 4, f"17c compute_rhs blocks {seen}")
+    print("phase 17c sharded steps f64 vs unsharded on the card, max "
+          "|d| / max(|ref|, 1) over the steps, < 1e-11: " + "; ".join(parts) +
+          "; Tendencies3D.compute_rhs 32x32x24 on (y 2, x 2) within 1e-11, "
+          "6 padded B1 launches a rank", flush=True)
+
+    # 17d: the production step ensemble-sharded
+    prod = [r["production"] for r in res]
+    for r in prod:
+        check(r["counts"] == {"p2p": 0, "all_reduce": 0, "all_gather": 0,
+                              "all_to_all": 0},
+              f"17d made collectives: {r['counts']}")
+        check(all(f for _, _, f in r["err"].values()), "17d not finite")
+    rel = {k: max(p["err"][k][0] / max(p["err"][k][1], 1e-30) for p in prod)
+           for k in prod[0]["err"]}
+    worst_k = max(rel, key=rel.get)
+    check(all(p["block_bit_equal"] for p in prod),
+          "17d: a rank's members differ from the same members stepped "
+          "alone: " + str([p["block_bit_equal"] for p in prod]))
+    check(all(v <= max(PROD_TOL * prod_drift[k], 1e-6)
+              for k, v in rel.items()),
+          f"17d members off the unsharded run: {rel} (1-ulp drift "
+          f"{prod_drift})")
+    ms_rank = [float(np.median(p["ms_steps"][1:])) for p in prod]
+    print(f"phase 17d production CRM step (configs/input_mmf_production."
+          f"yaml: SPAM+SI, P3+SHOC, 65x1x50, f32) nens {prod_nens} on "
+          f"{SHARD_WORLD} ranks of {prod[0]['nens_local']} ({backend}), "
+          f"{case.PROD_STEPS} steps, collectives 0: max rel err a field "
+          + ", ".join(f"{k} {v:.1e} (1-ulp drift {prod_drift[k]:.1e})"
+                      for k, v in rel.items()
+                      if k in case.KEYS + ("rain", "ice", "tke")) +
+          f" (worst {worst_k} {rel[worst_k]:.1e}), within {PROD_TOL:g} "
+          f"times the drift; every rank's {nloc} members bit-equal to "
+          f"them stepped alone at nens {nloc}; ms a step, median of "
+          f"steps 2-{case.PROD_STEPS}: per rank " +
+          ", ".join(f"{m:.2f}" for m in ms_rank) +
+          f", whole (barrier to barrier, {case.PROD_STEPS} steps) "
+          f"{np.mean([p['ms_all'] for p in prod]):.2f}, unsharded nens "
+          f"{prod_nens} on the card {np.median(prod_ms[1:]):.2f}; B1 "
+          f"{prod[0]['launches']['weno_x']} and B4 "
+          f"{prod[0]['launches']['p3_part2']} launches a rank; the ranks' "
+          f"call {spawn_s:.1f} s", flush=True)
+    return dict(
+        weno_x=res[0]["spam_kessler"]["launches"]["weno_x_padded"],
+        p3_part2=prod[0]["launches"]["p3_part2"],
+        awfl_flux=res[0]["awfl_kessler"]["launches"]["awfl_flux"],
+        backend=backend, b1=b1)
+
+
 def main():
     # 1. environment: a card and the package, before anything is printed
     check(torch.cuda.is_available(), "torch.cuda.is_available() is false")
@@ -1424,6 +1728,8 @@ def main():
                            (setup_supercell_mmf, state_from_numpy,
                             gcm_forcing, weno_count))
     launches_16 = phase_16(standalone, weno_x, golden, setup_supercell_mmf)
+    sharded = phase_17(standalone, weno, weno_x)
+    pad32 = sharded["b1"][("float32", 32000, 65)]
 
     # the kernels' record: float32 times at the main path's shapes (B4
     # with cloud, rain and ice each at half of the points); no single
@@ -1461,7 +1767,9 @@ def main():
          "launches_3d": launches_3d,
          "launches_anelastic": launches_16["risingbubble_an"],
          "launches_layer": launches_16["doublevortex"],
-         "launches_gcm_round_trip": launches_16["round_trip"]},
+         "launches_gcm_round_trip": launches_16["round_trip"],
+         "launches_sharded": sharded["weno_x"], "ms_padded": pad32[0],
+         "bound_ms_padded": pad32[2]},
         {"name": "p3_part2", "route": "cuda",
          "source": "pam_tpu_torch/csrc/p3_part2.cu",
          "replaces": "pam_tpu/physics/p3/main.py:780",
@@ -1469,7 +1777,8 @@ def main():
          "max_abs_err": max(e for (d, _, _), (e, _) in b4_errs.items()
                             if d == "float64"),
          "ms": b32, "plain_ms": bp32, "bound_ms": b4_bound[0],
-         "bound_by": b4_bound[1], "library_ms": None},
+         "bound_by": b4_bound[1], "library_ms": None,
+         "launches_sharded": sharded["p3_part2"]},
         {"name": "awfl_flux", "route": "cuda",
          "source": "pam_tpu_torch/csrc/awfl_flux.cu",
          "replaces": "pam_tpu/ops/awfl_pallas.py:148",
@@ -1479,7 +1788,8 @@ def main():
          "ms": z32, "plain_ms": zp32, "bound_ms": b3_bound[0],
          "bound_by": b3_bound[1], "library_ms": None,
          "ms_x": x32, "plain_ms_x": xp32,
-         "bound_ms_x": bound_ms(x_bytes, x_flops, torch.float32)[0]}]}))
+         "bound_ms_x": bound_ms(x_bytes, x_flops, torch.float32)[0],
+         "launches_sharded": sharded["awfl_flux"]}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -123,7 +123,8 @@ def library() -> types.SimpleNamespace:
 
     from .ops import awfl_flux, p3_part2, weno5, weno_x
     cdll = ctypes.CDLL(str(paths["weno_x.cu"]))
-    for name in ("pam_weno_x_f32", "pam_weno_x_f64"):
+    for name in ("pam_weno_x_f32", "pam_weno_x_f64", "pam_weno_x_padded_f32",
+                 "pam_weno_x_padded_f64"):
         bind(cdll, name, [ptr, ptr, ptr, i64, i32, i32, i32, ptr, ptr])
     bind(cdll, "pam_weno_x_ntables", [])
     bind(cdll, "pam_weno_x_tile", [])

@@ -30,6 +30,14 @@
 // limiter's arithmetic. A row wider than the tile is cut into segments,
 // each with its halo, one row per block.
 //
+// Padded mode (pam_weno_x_padded_*). Under x or y sharding a row is one
+// rank's block of a periodic axis, and its two-cell halos belong to the
+// neighbouring ranks: parallel/comm.py::halo_pad fetches them, and the
+// kernel takes the (rows, nx+4) field so padded, as the TPU kernel
+// (weno_x_pallas.py:46) takes its input. It copies each row's nx+4
+// columns as they are and wraps nothing. The wrapping mode stays the
+// route of an unsharded axis.
+//
 // Interface: plain C, bound with ctypes. The tables arrive as the
 // weno5::NTAB host doubles of ops/weno5.py::prepare_tables and are passed
 // to the kernel by value. Each entry point launches on the given stream,
@@ -50,8 +58,9 @@ constexpr int TILE = 4608;    // values of a block's tile, halos included
 constexpr int THREADS = 256;
 
 // rb rows of `seg` cells from x0 = blockIdx.y * seg on; seg = nx unless a
-// row is wider than the tile (then rb = 1).
-template <typename T>
+// row is wider than the tile (then rb = 1). PADDED: each input row holds
+// nx + 2*HALO values, its halos included, and nothing wraps.
+template <typename T, bool PADDED>
 __global__ void __launch_bounds__(THREADS)
 weno_x_kernel(const T* __restrict__ field, T* __restrict__ left,
               T* __restrict__ right, long long rows, int nx, int rb, int seg,
@@ -62,16 +71,22 @@ weno_x_kernel(const T* __restrict__ field, T* __restrict__ left,
   const int x0 = blockIdx.y * seg;
   const int len = min(seg, nx - x0);
   const int pitch = len + 2 * HALO;
-  const T* src = field + row0 * nx;
+  const long long in_pitch = PADDED ? nx + 2 * HALO : nx;
+  const T* src = field + row0 * in_pitch;
 
   // rows with their periodic halo, a warp per row at a time
   const int lane = threadIdx.x % 32;
   for (int r = threadIdx.x / 32; r < nrows; r += THREADS / 32)
     for (int s = lane; s < pitch; s += 32) {
-      int x = x0 - HALO + s;
-      if (x < 0) x += nx;
-      else if (x >= nx) x -= nx;
-      tile[r * pitch + s] = src[(long long)r * nx + x];
+      if constexpr (PADDED) {
+        // padded column x0 + s is cell x0 - HALO + s
+        tile[r * pitch + s] = src[(long long)r * in_pitch + x0 + s];
+      } else {
+        int x = x0 - HALO + s;
+        if (x < 0) x += nx;
+        else if (x >= nx) x -= nx;
+        tile[r * pitch + s] = src[(long long)r * nx + x];
+      }
     }
   __syncthreads();
 
@@ -92,18 +107,19 @@ weno_x_kernel(const T* __restrict__ field, T* __restrict__ left,
   }
 }
 
-template <typename T>
+template <typename T, bool PADDED>
 int launch(const T* field, T* left, T* right, long long rows, int nx, int rb,
            int seg, const double* tables, void* stream) {
   if (rows == 0 || nx == 0) return 0;
   const long long blocks = (rows + rb - 1) / rb;
   const int segments = (nx + seg - 1) / seg;
-  if (nx < HALO || rb < 1 || seg < 1 || (rb > 1 && seg != nx) ||
-      (long long)rb * (seg + 2 * HALO) > TILE || blocks >= (1ll << 31) ||
-      segments > 65535)
+  if ((!PADDED && nx < HALO) || rb < 1 || seg < 1 ||
+      (rb > 1 && seg != nx) || (long long)rb * (seg + 2 * HALO) > TILE ||
+      blocks >= (1ll << 31) || segments > 65535)
     return (int)cudaErrorInvalidValue;
-  weno_x_kernel<T><<<dim3((unsigned)blocks, (unsigned)segments), THREADS, 0,
-                     (cudaStream_t)stream>>>(
+  weno_x_kernel<T, PADDED>
+      <<<dim3((unsigned)blocks, (unsigned)segments), THREADS, 0,
+         (cudaStream_t)stream>>>(
       field, left, right, rows, nx, rb, seg, weno5::fast_div((unsigned)nx),
       weno5::unpack<T>(tables));
   return (int)cudaGetLastError();
@@ -119,12 +135,30 @@ extern "C" int pam_weno_x_tile() { return TILE; }
 extern "C" int pam_weno_x_f32(const float* field, float* left, float* right,
                               long long rows, int nx, int rb, int seg,
                               const double* tables, void* stream) {
-  return launch<float>(field, left, right, rows, nx, rb, seg, tables, stream);
+  return launch<float, false>(field, left, right, rows, nx, rb, seg, tables,
+                             stream);
 }
 
 extern "C" int pam_weno_x_f64(const double* field, double* left,
                               double* right, long long rows, int nx, int rb,
                               int seg, const double* tables, void* stream) {
-  return launch<double>(field, left, right, rows, nx, rb, seg, tables,
-                        stream);
+  return launch<double, false>(field, left, right, rows, nx, rb, seg, tables,
+                               stream);
+}
+
+// the same over a (rows, nx+4) field whose halos are already in place
+extern "C" int pam_weno_x_padded_f32(const float* field, float* left,
+                                     float* right, long long rows, int nx,
+                                     int rb, int seg, const double* tables,
+                                     void* stream) {
+  return launch<float, true>(field, left, right, rows, nx, rb, seg, tables,
+                             stream);
+}
+
+extern "C" int pam_weno_x_padded_f64(const double* field, double* left,
+                                     double* right, long long rows, int nx,
+                                     int rb, int seg, const double* tables,
+                                     void* stream) {
+  return launch<double, true>(field, left, right, rows, nx, rb, seg, tables,
+                              stream);
 }

@@ -198,9 +198,9 @@ class AwflDycore:
 
         # one stacked array -> a single periodic-x (and y) pad for all
         allf = torch.cat([dyn, tracers, pressure[None]], dim=0)
-        allf = comm.halo_pad(allf, hs, axis=AX_X)
+        allf = comm.halo_pad(allf, hs, axis=AX_X, kind="x")
         if not cpl.sim2d:
-            allf = comm.halo_pad(allf, hs, axis=AX_Y)
+            allf = comm.halo_pad(allf, hs, axis=AX_Y, kind="y")
 
         rho, th = allf[0], allf[4]
 
@@ -337,7 +337,8 @@ class AwflDycore:
             # Dycore.h:574-579). The vertical axis pads with 1.
             n = mult.shape[ax]
             padded = (_pad_ones(mult, ax) if ax == AX_Z
-                      else comm.halo_pad(mult, 1, axis=ax))
+                      else comm.halo_pad(mult, 1, axis=ax,
+                                         kind="x" if ax == AX_X else "y"))
             ml = padded.narrow(ax, 0, n + 1)
             mr = padded.narrow(ax, 1, n + 1)
             return flux * torch.where(flux > 0, ml,

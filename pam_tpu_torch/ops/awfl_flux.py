@@ -27,6 +27,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..parallel.mesh import per_member
 from . import recon_matrices as rm, weno, weno5
 
 CS = 350.0  # frozen acoustic characteristic speed (ref: Dycore.h:335)
@@ -51,9 +52,9 @@ class LevelMatrices:
     axis at -2 of the dycore's layout). packed: one (members, nz+2, 52)
     tensor for the kernel, per level the bridge polynomial's matrix
     ``weno5.bridge_matrix`` [c][s], then wrl[i][s][c]."""
-    s2c: torch.Tensor
-    wrl: torch.Tensor
-    packed: torch.Tensor
+    s2c: torch.Tensor = per_member(2)
+    wrl: torch.Tensor = per_member(3)
+    packed: torch.Tensor = per_member(0)
 
     @staticmethod
     def build(s2c: np.ndarray, wrl: np.ndarray, dtype,

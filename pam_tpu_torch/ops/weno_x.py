@@ -7,6 +7,13 @@ by device: a CUDA tensor goes to the kernel (or raises), a CPU tensor to
 :func:`weno_edges_x_reference`, the torch port of ``halo_pad`` +
 ``weno.weno_edges_list`` that the CPU tests and the card-side comparison
 use.
+
+The kernel has two modes. Along an unsharded axis it wraps each row
+itself (``pam_weno_x_*``). Along an axis split over ranks
+(``parallel/comm.py``) a row is one rank's block, so ``comm.halo_pad``
+fetches the two-cell halos from the neighbours first and the kernel
+takes the (rows, nx+4) field as it stands (``pam_weno_x_padded_*``), the
+input of the TPU kernel (weno_x_pallas.py:46).
 """
 
 from __future__ import annotations
@@ -22,15 +29,25 @@ TILE = 4608        # values of a block's shared-memory tile (csrc/weno_x.cu)
 MAX_ROWS = 16      # most rows a block takes
 
 
-def weno_edges_x_reference(field: torch.Tensor, tables):
-    """(left, right) WENO edge values of each cell along periodic x (the
-    last axis) in plain torch: periodic halo + ``weno_edges_list``."""
+def weno_edges_padded_reference(pad: torch.Tensor, tables):
+    """(left, right) WENO edge values of the cells of a field padded by
+    the stencil half-width on each side of its last axis, in plain
+    torch (``weno_edges_list``); the padded kernel's plain version."""
     s2c, wrl, tvh, tvl, c2g, idl, sigma = tables
-    hs = (s2c.shape[-1] - 1) // 2
-    nx = field.shape[-1]
-    pad = comm.halo_pad(field, hs)
-    sten = [pad[..., s:s + nx] for s in range(s2c.shape[-1])]
+    ord = s2c.shape[-1]
+    nx = pad.shape[-1] - (ord - 1)
+    sten = [pad[..., s:s + nx] for s in range(ord)]
     return weno.weno_edges_list(sten, s2c, wrl, tvh, tvl, idl, sigma, c2g)
+
+
+def weno_edges_x_reference(field: torch.Tensor, tables, kind: str = "x"):
+    """(left, right) WENO edge values of each cell along the periodic
+    last axis (x, or y on a view with y moved last: ``kind``) in plain
+    torch: periodic halo (exchanged where that axis is sharded) +
+    ``weno_edges_list``."""
+    hs = (tables[0].shape[-1] - 1) // 2
+    return weno_edges_padded_reference(
+        comm.halo_pad(field, hs, axis=-1, kind=kind), tables)
 
 
 def weno_edges_h_reference(field: torch.Tensor, tables, axis: int):
@@ -44,15 +61,16 @@ def weno_edges_h_reference(field: torch.Tensor, tables, axis: int):
     return weno.weno_edges_list(sten, s2c, wrl, tvh, tvl, idl, sigma, c2g)
 
 
-def weno_x_work(rows, nx, itemsize, tables):
-    """(bytes, flops) one call needs: the field read once, both edge
-    arrays written once; per cell the limiter, then per edge the
-    candidates evaluated there and their weighted sum
-    (``weno.weno_edges_list``)."""
+def weno_x_work(rows, nx, itemsize, tables, padded=False):
+    """(bytes, flops) one call needs: the field read once (with its
+    halos in the padded mode), both edge arrays written once; per cell
+    the limiter, then per edge the candidates evaluated there and their
+    weighted sum (``weno.weno_edges_list``)."""
     ord = tables[0].shape[-1]
     hs = (ord + 1) // 2
     per_edge = hs * (2 * hs - 1) + (2 * ord - 1) + (2 * (hs + 1) - 1)
-    return (3 * rows * nx * itemsize,
+    nread = nx + (ord - 1 if padded else 0)
+    return (rows * (nread + 2 * nx) * itemsize,
             rows * nx * (weno.limiter_flops(tables) + 2 * per_edge))
 
 
@@ -75,9 +93,11 @@ def tiling(rows: int, nx: int) -> tuple[int, int]:
     return best, nx
 
 
-def weno_edges_x_cuda(field: torch.Tensor, tables, rows_per_block=None):
+def weno_edges_x_cuda(field: torch.Tensor, tables, rows_per_block=None,
+                      padded: bool = False):
     """Launch ``csrc/weno_x.cu`` on a contiguous (rows, nx) float32/float64
-    CUDA tensor; returns (left, right), each (rows, nx). ``rows_per_block``
+    CUDA tensor, or with ``padded`` on a (rows, nx+4) one whose halos are
+    in place; returns (left, right), each (rows, nx). ``rows_per_block``
     overrides :func:`tiling`'s choice (for measuring it)."""
     if not field.is_cuda:
         raise ValueError(f"weno_edges_x_cuda needs a CUDA tensor, got "
@@ -90,7 +110,12 @@ def weno_edges_x_cuda(field: torch.Tensor, tables, rows_per_block=None):
                          f"tensor, got shape {tuple(field.shape)} "
                          f"contiguous={field.is_contiguous()}")
     rows, nx = field.shape
-    if nx < (ORD - 1) // 2:
+    if padded:
+        nx -= ORD - 1
+        if nx < 1:
+            raise ValueError(f"a padded row of {nx + ORD - 1} values holds "
+                             "no cell")
+    elif nx < (ORD - 1) // 2:
         raise ValueError(f"nx={nx} is narrower than the stencil half-width")
     if np.asarray(tables[0]).dtype != {torch.float32: np.float32,
                                        torch.float64: np.float64}[field.dtype]:
@@ -101,10 +126,10 @@ def weno_edges_x_cuda(field: torch.Tensor, tables, rows_per_block=None):
     rb, seg = tiling(rows, nx)
     if rows_per_block is not None:
         rb = int(rows_per_block)
-    left = torch.empty_like(field)
-    right = torch.empty_like(field)
-    fn = lib.pam_weno_x_f32 if field.dtype == torch.float32 \
-        else lib.pam_weno_x_f64
+    left = field.new_empty((rows, nx))
+    right = field.new_empty((rows, nx))
+    fn = getattr(lib, "pam_weno_x_" + ("padded_" if padded else "") +
+                 ("f32" if field.dtype == torch.float32 else "f64"))
     with torch.cuda.device(field.device):
         stream = torch.cuda.current_stream(field.device).cuda_stream
         rc = fn(field.data_ptr(), left.data_ptr(), right.data_ptr(), rows, nx,
@@ -112,21 +137,32 @@ def weno_edges_x_cuda(field: torch.Tensor, tables, rows_per_block=None):
     if rc != 0:
         raise RuntimeError(f"weno_x kernel launch failed: CUDA error {rc}")
     weno_edges_x_cuda.launches += 1
+    if padded:
+        weno_edges_x_cuda.launches_padded += 1
     return left, right
 
 
-weno_edges_x_cuda.launches = 0
+weno_edges_x_cuda.launches = 0          # every launch
+weno_edges_x_cuda.launches_padded = 0   # the launches in the padded mode
 
 
-def weno_edges_x(field: torch.Tensor, tables):
-    """(left, right) WENO edge values along periodic x for a field of any
-    leading shape: the CUDA kernel for a CUDA tensor, the plain version
-    for a CPU tensor."""
+def weno_edges_x(field: torch.Tensor, tables, kind: str = "x"):
+    """(left, right) WENO edge values along the periodic last axis for a
+    field of any leading shape; ``kind`` names that axis ("x", or "y" for
+    a view with y moved last). A CUDA tensor goes to the kernel: the
+    wrapping mode, or the padded mode after ``comm.halo_pad`` where the
+    axis is sharded. A CPU tensor goes to the plain version."""
     if field.is_cuda:
         shape = field.shape
-        left, right = weno_edges_x_cuda(
-            field.reshape(-1, shape[-1]).contiguous(), tables)
+        if comm.sharded(kind):
+            pad = comm.halo_pad(field, (ORD - 1) // 2, axis=-1, kind=kind)
+            left, right = weno_edges_x_cuda(
+                pad.reshape(-1, pad.shape[-1]).contiguous(), tables,
+                padded=True)
+        else:
+            left, right = weno_edges_x_cuda(
+                field.reshape(-1, shape[-1]).contiguous(), tables)
         return left.reshape(shape), right.reshape(shape)
     if field.device.type != "cpu":
         raise ValueError(f"weno_edges_x: no route for device {field.device}")
-    return weno_edges_x_reference(field, tables)
+    return weno_edges_x_reference(field, tables, kind)

@@ -107,9 +107,11 @@ class AnelasticPressureSolver:
         if v.dtype != self.geom.dtype:
             raise TypeError(f"the anelastic solver is built in "
                             f"{self.geom.dtype}; got a velocity in {v.dtype}")
-        rhs = dft.fft(-self.divergence(v, w))
+        # the psum-DFT under x sharding, the tridiagonal on the whole
+        # spectrum, the comm-free inverse (pam_tpu/spam/anelastic.py:129-132)
+        rhs = dft.fft_sh(-self.divergence(v, w))
         rhs[:, self.kfix, 0] = 0.0       # a new tensor: no one else holds it
-        p = dft.ifft_real(self._tridiag(rhs))
+        p = dft.ifft_real_sh(self._tridiag(rhs))
         dv = p - op.rollm(p, -1)                  # D0 in x (:3495-3503)
         dw = p[:, 1:, :] - p[:, :-1, :]           # D0_vert (:3486-3494)
         return dv, dw

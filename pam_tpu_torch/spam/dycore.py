@@ -20,6 +20,7 @@ import torch
 
 from ..core.coupler import Coupler
 from ..parallel import comm
+from ..parallel.mesh import per_member
 from . import si as si_mod
 from . import extruded3d
 from .extruded3d import Tendencies3D
@@ -35,6 +36,13 @@ def exact_inverse_avg(u, axis: int = -1):
     (couple_wind_exact_inverse, variableset.h:807-846, in the closed form
     of pam_tpu/spam/dycore.py:26-54: the recurrence v[i] = 2 u[i-1] -
     v[i-1] is an alternating cumulative sum)."""
+    if comm.sharded("x" if axis % u.ndim == u.ndim - 1 else "y"):
+        # the alternating sum runs over the whole axis: a shard-local
+        # inverse would be wrong at every shard boundary
+        # (pam_tpu/spam/dycore.py:37-43)
+        raise NotImplementedError(
+            "couple_wind_exact_inverse needs its axis unsharded (a global "
+            "alternating sum); use the averaging conversion under sharding")
     n = u.shape[axis]
     if n % 2 != 1:
         raise ValueError("couple_wind_exact_inverse requires an odd cell "
@@ -86,7 +94,7 @@ class SpamDycore:
     varset: VariableSet
     thermo: Any
     tend: Any              # SpamTendencies (slab) or Tendencies3D
-    geop: torch.Tensor     # (nens, nz, [ny,] nx) n-form of g*z
+    geop: torch.Tensor = per_member(0)  # (nens, nz, [ny,] nx) n-form of g*z
     grav: float
     si_linsys: Any = None
     si_dt: float = None
@@ -306,6 +314,8 @@ class SpamDycore:
         clipped after every substep (the reference's
         clip_negative_densities)."""
         geop = comm.local_xslice(self.geop, -1)
+        if self.ndims == 2:
+            geop = comm.local_yslice(geop, -2)
         if self.si_linsys is not None:
             n_substeps = max(1, int(round(dt_phys / self.si_dt)))
             dtcrm = dt_phys / n_substeps

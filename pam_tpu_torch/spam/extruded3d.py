@@ -35,6 +35,7 @@ import torch
 
 from ..ops import weno, weno_x
 from ..parallel import comm
+from ..parallel.mesh import per_member
 from . import timesteppers
 from .tendencies import level_matrices
 
@@ -90,7 +91,8 @@ def _edge_recon_h(field, tables, axis, recon_type: str = "wenofunc"):
                 weno._eval_edge_list(aw, c2g[:, 1]))
     if axis == AXX:
         return weno_x.weno_edges_x(field, tables)
-    left, right = weno_x.weno_edges_x(field.movedim(AXY, AXX), tables)
+    left, right = weno_x.weno_edges_x(field.movedim(AXY, AXX), tables,
+                                      kind="y")
     return left.movedim(AXX, AXY), right.movedim(AXX, AXY)
 
 
@@ -143,15 +145,17 @@ class Tendencies3D:
     dual_upwind_type: str = "heaviside"     # "heaviside"|"tanh"
     tanh_upwind_coeff: float = 250.0
     # reference state columns (None -> zeros), run dtype/device
-    refdens: Any = None          # (ndens, nens, nz)
-    ref_q_pi: Any = None         # (ndens, nens, nz)
-    ref_rho_pi: Any = None       # (nens, nz)
-    ref_q_di: Any = None         # (ndens, nens, nz+1)
-    ref_rho_di: Any = None       # (nens, nz+1)
-    ref_B: Any = None            # (nactive, nens, nz)
+    refdens: Any = per_member(1, default=None)  # (ndens, nens, nz)
+    ref_q_pi: Any = per_member(1, default=None)  # (ndens, nens, nz)
+    ref_rho_pi: Any = per_member(0, default=None)  # (nens, nz)
+    ref_q_di: Any = per_member(1, default=None)  # (ndens, nens, nz+1)
+    ref_rho_di: Any = per_member(0, default=None)  # (nens, nz+1)
+    ref_B: Any = per_member(1, default=None)  # (nactive, nens, nz)
     # per-level z matrices of a stretched grid (None on a uniform one)
-    per_level_d: Any = None      # dual layers, thickness dz_d
-    per_level_q: Any = None      # primal layers, thickness dz_p
+    # dual layers, thickness dz_d
+    per_level_d: Any = per_member(-4, default=None)
+    # primal layers, thickness dz_p
+    per_level_q: Any = per_member(-4, default=None)
 
     def __post_init__(self):
         g = self.geom

@@ -19,6 +19,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..parallel.mesh import per_member
+
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class ExtrudedGeometry:
@@ -29,16 +31,18 @@ class ExtrudedGeometry:
     dx: float
     dy: float         # 1.0 for ndims=1, ylen / ny for ndims=2
     uniform_vertical: bool
-    zint_d: np.ndarray   # (nens, nz+1) twisted interfaces
-    dz_d: np.ndarray     # (nens, nz)   twisted layer thicknesses
-    zint_p: np.ndarray   # (nens, nz)   straight interfaces (v-levels)
-    dz_p: np.ndarray     # (nens, nz-1) straight layer thicknesses (w-edges)
+    zint_d: np.ndarray = per_member(0)  # (nens, nz+1) twisted interfaces
+    dz_d: np.ndarray = per_member(0)  # (nens, nz)   twisted layer thicknesses
+    # (nens, nz)   straight interfaces (v-levels)
+    zint_p: np.ndarray = per_member(0)
+    # (nens, nz-1) straight layer thicknesses (w-edges)
+    dz_p: np.ndarray = per_member(0)
     dtype: torch.dtype
     device: torch.device
-    dz_d_t: torch.Tensor        # dz_d as run tensor
-    dz_p_t: torch.Tensor        # dz_p as run tensor
-    area_n1_t: torch.Tensor     # d_area_n1() as run tensor
-    area_nm11_t: torch.Tensor   # d_area_nm11() as run tensor
+    dz_d_t: torch.Tensor = per_member(0)  # dz_d as run tensor
+    dz_p_t: torch.Tensor = per_member(0)  # dz_p as run tensor
+    area_n1_t: torch.Tensor = per_member(0)  # d_area_n1() as run tensor
+    area_nm11_t: torch.Tensor = per_member(0)  # d_area_nm11() as run tensor
     ny: int = 1       # ndims=2 (3-D x-y-z) when > 1
     ylen: float = 1.0
 

@@ -48,7 +48,8 @@ def _edge_recon(field, tables, axis):
     CPU tensor."""
     if axis == -1:
         return weno_x.weno_edges_x(field, tables)
-    left, right = weno_x.weno_edges_x(field.movedim(-2, -1), tables)
+    left, right = weno_x.weno_edges_x(field.movedim(-2, -1), tables,
+                                      kind="y")
     return left.movedim(-1, -2), right.movedim(-1, -2)
 
 

@@ -36,6 +36,7 @@ from torch.profiler import record_function
 from ..ops import dft
 from ..ops.tridiag import thomas
 from ..parallel import comm
+from ..parallel.mesh import per_member
 from . import operators as op
 from .testcases import saturation_vapor_pressure
 from .thermo import ConstantKappaVirtualPottemp, IdealGasPottemp
@@ -275,19 +276,21 @@ class CompressibleVelocityLinearSystem:
     geom: Any
     varset: Any
     dt: float
-    Blin: torch.Tensor        # (2, 2, nens, ni_p)
-    vcoeff0: torch.Tensor     # (nens, ni_p, nx) complex
-    tri_l: torch.Tensor       # (nens, nl_p, nx) complex
-    tri_d: torch.Tensor
-    tri_u: torch.Tensor
-    a_kp1: torch.Tensor       # (nens, nl_p, nx) complex (w-rhs coupling)
-    a_k: torch.Tensor
-    g_up: torch.Tensor        # (nens, ni_p, nx) complex (vhat recovery)
-    g_dn: torch.Tensor
-    q_pi: torch.Tensor        # (ndens, nens, ni_p)
-    q_di: torch.Tensor        # (ndens, nens, ni_d)
-    rho_pi: torch.Tensor      # (nens, ni_p)
-    rho_di: torch.Tensor      # (nens, ni_d)
+    Blin: torch.Tensor = per_member(2)  # (2, 2, nens, ni_p)
+    vcoeff0: torch.Tensor = per_member(0)  # (nens, ni_p, nx) complex
+    tri_l: torch.Tensor = per_member(0)  # (nens, nl_p, nx) complex
+    tri_d: torch.Tensor = per_member(0)
+    tri_u: torch.Tensor = per_member(0)
+    # (nens, nl_p, nx) complex (w-rhs coupling)
+    a_kp1: torch.Tensor = per_member(0)
+    a_k: torch.Tensor = per_member(0)
+    # (nens, ni_p, nx) complex (vhat recovery)
+    g_up: torch.Tensor = per_member(0)
+    g_dn: torch.Tensor = per_member(0)
+    q_pi: torch.Tensor = per_member(1)  # (ndens, nens, ni_p)
+    q_di: torch.Tensor = per_member(1)  # (ndens, nens, ni_d)
+    rho_pi: torch.Tensor = per_member(0)  # (nens, ni_p)
+    rho_di: torch.Tensor = per_member(0)  # (nens, ni_d)
 
     @staticmethod
     def build(geom, thermo, varset, refstate, dt, grav=9.80616):
@@ -434,8 +437,12 @@ class CompressibleVelocityLinearSystem:
                              bvar[:, :, 1:, :] - bvar[:, :, :-1, :])
         w_t = rhs_w + mod_w
 
-        vhat = dft.fft(v_t)
-        what = dft.fft(w_t)
+        # under x sharding the forward transform is the psum-DFT (the
+        # spectrum comes out whole on every x rank, the tridiagonal runs
+        # on it redundantly) and the inverse needs no communication
+        # (ops/dft.py; pam_tpu/spam/si.py:501-522)
+        vhat = dft.fft_sh(v_t)
+        what = dft.fft_sh(w_t)
         # modify wrhs (:2970-3023)
         what = what + self.a_kp1 * vhat[:, 1:, :] - self.a_k * vhat[:, :-1, :]
         what = self._tridiag(what)
@@ -444,8 +451,8 @@ class CompressibleVelocityLinearSystem:
         w_up = torch.cat([what, zrow], dim=1)          # w(k) for k<ni-1
         w_dn = torch.cat([zrow, what], dim=1)          # w(k-1) for k>0
         vhat = self.vcoeff0 * vhat + self.g_up * w_up - self.g_dn * w_dn
-        sol_v = dft.ifft_real(vhat)
-        sol_w = dft.ifft_real(what)
+        sol_v = dft.ifft_real_sh(vhat)
+        sol_w = dft.ifft_real_sh(what)
 
         # recover densities (:3085-3159)
         F = op.H10(sol_v, g) * self.rho_pi[:, :, None]
@@ -713,16 +720,16 @@ class CompressiblePressureLinearSystem:
     dt: float
     ndims: int
     dtype: torch.dtype
-    linp: torch.Tensor        # (nact, nens, nz)
-    tri_l: torch.Tensor       # (nens, nz, [ny,] nxr) real
-    tri_d: torch.Tensor
-    tri_u: torch.Tensor
-    q_pi: torch.Tensor        # (ndens, nens, nz)
-    q_di: torch.Tensor        # (ndens, nens, nz+1)
-    rho_pi: torch.Tensor      # (nens, nz)
-    rho_di: torch.Tensor      # (nens, nz+1)
-    dz_d: torch.Tensor        # (nens, nz)
-    dz_p: torch.Tensor        # (nens, nz-1)
+    linp: torch.Tensor = per_member(1)  # (nact, nens, nz)
+    tri_l: torch.Tensor = per_member(0)  # (nens, nz, [ny,] nxr) real
+    tri_d: torch.Tensor = per_member(0)
+    tri_u: torch.Tensor = per_member(0)
+    q_pi: torch.Tensor = per_member(1)  # (ndens, nens, nz)
+    q_di: torch.Tensor = per_member(1)  # (ndens, nens, nz+1)
+    rho_pi: torch.Tensor = per_member(0)  # (nens, nz)
+    rho_di: torch.Tensor = per_member(0)  # (nens, nz+1)
+    dz_d: torch.Tensor = per_member(0)  # (nens, nz)
+    dz_p: torch.Tensor = per_member(0)  # (nens, nz-1)
 
     @staticmethod
     def _coefficients(geom, thermo, varset, refstate, dt):
@@ -858,13 +865,20 @@ class CompressiblePressureLinearSystem:
                       fz[_zslice(fz.ndim, self._za, slice(None, -1))])
 
     def _to_spectral(self, p):
-        phat = dft.rfft(p)
+        # x: the psum-DFT under x sharding (pam_tpu/spam/si.py:980); y
+        # stays rank-local, as in pam_tpu, so y sharding is refused
+        if self.ndims == 2 and comm.sharded("y"):
+            raise NotImplementedError(
+                "the SI pressure solve transforms y rank-locally (as "
+                "pam_tpu/spam/si.py:979 does); it cannot run with y "
+                "sharded: shard x and the ensemble only")
+        phat = dft.rfft_sh(p)
         return dft.fft(phat, dim=-2) if self.ndims == 2 else phat
 
     def _from_spectral(self, phat):
         if self.ndims == 2:
             phat = dft.ifft(phat, dim=-2)
-        return dft.irfft(phat, self.geom.nx)
+        return dft.irfft_sh(phat, self.geom.nx)
 
     def _velocity_update(self, rhs_v, p, al):
         """v - al grad_h p / rho_pi (:3860-3917)."""
@@ -916,17 +930,21 @@ class CompressiblePressureGravityLinearSystem(CompressiblePressureLinearSystem):
     tridiagonal A acting on w carries the buoyancy coupling that the
     plain pressure system drops (the stratification-robust choice, and
     the 3-D default). Slab and 3-D layouts."""
-    omega_c: torch.Tensor = None   # 1 / (rho_pi^2 omega), (nens, ni)
-    Dmod_u: torch.Tensor = None    # (nens, nl)
-    Dmod_d: torch.Tensor = None
-    A_l: torch.Tensor = None       # (nens, nl), x-independent
-    A_d: torch.Tensor = None
-    A_u: torch.Tensor = None
-    Fhorz: torch.Tensor = None     # (nens, ni, [ny,] nxr)
-    dpres: torch.Tensor = None     # pres_pi(k+1) - pres_pi(k), (nens, nl)
-    fHn1bar: torch.Tensor = None   # 1 / (dx dy dz_d), (nens, ni)
-    w8: torch.Tensor = None        # rho_di q_di H01, (nact, nens, ni+1),
-    #                                complex
+    # 1 / (rho_pi^2 omega), (nens, ni)
+    omega_c: torch.Tensor = per_member(0, default=None)
+    Dmod_u: torch.Tensor = per_member(0, default=None)  # (nens, nl)
+    Dmod_d: torch.Tensor = per_member(0, default=None)
+    # (nens, nl), x-independent
+    A_l: torch.Tensor = per_member(0, default=None)
+    A_d: torch.Tensor = per_member(0, default=None)
+    A_u: torch.Tensor = per_member(0, default=None)
+    Fhorz: torch.Tensor = per_member(0, default=None)  # (nens, ni, [ny,] nxr)
+    # pres_pi(k+1) - pres_pi(k), (nens, nl)
+    dpres: torch.Tensor = per_member(0, default=None)
+    # 1 / (dx dy dz_d), (nens, ni)
+    fHn1bar: torch.Tensor = per_member(0, default=None)
+    # rho_di q_di H01, (nact, nens, ni+1), complex
+    w8: torch.Tensor = per_member(1, default=None)
 
     @staticmethod
     def build(geom, thermo, varset, refstate, dt):

@@ -28,6 +28,7 @@ import torch
 from ..ops import recon_matrices as rm
 from ..ops import weno, weno_x
 from ..parallel import comm
+from ..parallel.mesh import per_member
 from . import diffusion
 from . import operators as op
 from . import timesteppers
@@ -136,16 +137,21 @@ class SpamTendencies:
     velocity_div_horiz_diffusion_coeff: float = 0.0
     velocity_div_vert_diffusion_coeff: float = 0.0
     # reference state columns (None -> zeros), run dtype/device
-    refdens: Any = None          # (ndens, nens, nz)   dual layers
-    ref_q_pi: Any = None         # (ndens, nens, nz)   at v-levels
-    ref_rho_pi: Any = None       # (nens, nz)
-    ref_q_di: Any = None         # (ndens, nens, nz+1) at dual interfaces
-    ref_rho_di: Any = None       # (nens, nz+1)
-    ref_B: Any = None            # (nactive, nens, nz)
+    # (ndens, nens, nz)   dual layers
+    refdens: Any = per_member(1, default=None)
+    # (ndens, nens, nz)   at v-levels
+    ref_q_pi: Any = per_member(1, default=None)
+    ref_rho_pi: Any = per_member(0, default=None)  # (nens, nz)
+    # (ndens, nens, nz+1) at dual interfaces
+    ref_q_di: Any = per_member(1, default=None)
+    ref_rho_di: Any = per_member(0, default=None)  # (nens, nz+1)
+    ref_B: Any = per_member(1, default=None)  # (nactive, nens, nz)
     # per-level z matrices of a stretched grid (None on a uniform one),
     # built by __post_init__ and carried along by dataclasses.replace
-    per_level_d: Any = None      # dual layers, thickness dz_d
-    per_level_q: Any = None      # primal layers, thickness dz_p
+    # dual layers, thickness dz_d
+    per_level_d: Any = per_member(-3, default=None)
+    # primal layers, thickness dz_p
+    per_level_q: Any = per_member(-3, default=None)
 
     def __post_init__(self):
         if not self.geom.uniform_vertical and self.per_level_d is None:

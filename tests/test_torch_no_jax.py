@@ -15,7 +15,9 @@ anelastic and layer modules and the GCM bridge import, run_idealized
 takes one step of configs/input_risingbubble_an.yaml cut to 8x8 and one
 of configs/input_doublevortex.yaml cut to 8x8, the anelastic oracle case
 of tests/torch_anelastic_case.py builds, and one GCM step of a tiny
-SPAM+Kessler CRM makes the round trip through the port's registry."""
+SPAM+Kessler CRM makes the round trip through the port's registry; a
+one-rank sharded CRM step (parallel/{mesh,sharded_step}.py) equals the
+unsharded one."""
 
 import os
 import subprocess
@@ -136,6 +138,18 @@ for k in host:
     assert dm.validate(k) == 0 and dm.entry_dirty(k)
 assert np.array_equal(host["temp"], state["temp"].numpy())
 dm.finalize()
+from pam_tpu_torch.parallel import mesh as tmesh, sharded_step
+drv, state = setup_supercell_mmf(nx=8, ny=1, nz=8, nens=2, xlen=16000.0,
+                                 ylen=64000.0, zlen=16000.0, dt_gcm=20.0,
+                                 dt_crm_phys=20.0, dtype=torch.float64,
+                                 device="cpu", dycore="spam")
+state = gcm_forcing.compute_gcm_forcing_tendencies(drv.coupler, state, 20.0)
+step, place = sharded_step.sharded_crm_step(
+    drv, tmesh.make_mesh(1, 1, 1, device="cpu"))
+out = tmesh.gather_state(tmesh.make_mesh(1, 1, 1, device="cpu"),
+                         step(place(state)))
+ref = drv.crm_phys_step(state)
+assert all(torch.equal(out[k], ref[k]) for k in ref)
 loaded = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
           or m == "pam_tpu" or m.startswith("pam_tpu.")]
 assert all(sys.modules[m] is None for m in loaded), loaded

@@ -125,12 +125,13 @@ def test_b1_calls_per_3d_step(monkeypatch, run):
     takes 3 right-hand sides, an SI step of 3 iterations compute_rhs and
     2 quasi-Newton evaluations: 18 either way. On the CPU every call takes
     the plain version and nothing is launched."""
-    calls = []
+    calls, kinds = [], []
     real = weno_x.weno_edges_x
 
-    def counted(field, tables):
+    def counted(field, tables, kind="x"):
         calls.append(tuple(field.shape))
-        return real(field, tables)
+        kinds.append(kind)
+        return real(field, tables, kind)
     monkeypatch.setattr(weno_x, "weno_edges_x", counted)
     tend, step, x, geop, dt, _ = tstandalone.idealized_setup(
         _cfg(run, nsteps=1), "cpu")
@@ -143,6 +144,8 @@ def test_b1_calls_per_3d_step(monkeypatch, run):
     nx, ny = x[0].shape[-1], x[0].shape[-2]
     last = [c[-1] for c in calls[:6]]
     assert last.count(nx) == 3 and last.count(ny) == 3
+    # the y ones name their axis, for the halo exchange under y sharding
+    assert kinds.count("y") == 9 and kinds.count("x") == 9
 
 
 # --------------------------------------------------------- coupled 3-D
