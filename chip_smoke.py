@@ -26,7 +26,13 @@ torch_sharding_case.py::chip_phase): the comm primitives on CUDA tensors
 3-D steps in f64 and Tendencies3D on (y 2, x 2) against the same steps
 unsharded on the card (17c), and configs/input_mmf_production.yaml's CRM
 step (65x1x50, nens 512, f32) ensemble-sharded, 128 members a rank, with
-no collective (17d).
+no collective (17d); and the benchmark route and the scaling tool
+(phase 18): python -m pam_tpu_torch.bench's single-config line of record
+at nens 128 (18a) and its default rows, bench.py's six, with short runs
+(18b), each line held to the route's contract, and python -m
+pam_tpu_torch.measure_scaling's slab configuration on 1 and 2 x shards,
+its collectives a step equal to 17c's and its bytes a step nonzero for
+every kind it counts (18c).
 
 Usage (from the root of a checkout, on a machine with the card):
 
@@ -41,8 +47,10 @@ together; for the AWFL flux those of the z call, the slower half of its
 launches, with the x call's beside them; launches_sharded, one rank's
 launches on its sharded path in phase 17: B1 in the padded mode on the
 x-sharded SPAM+SI step, B4 on the ensemble-sharded production step, B3
-on the x-sharded AWFL step; for B1 also ms_padded and bound_ms_padded,
-the padded mode at the main path's shape), the line before it the two WENO
+on the x-sharded AWFL step; launches_bench, its launches in the
+benchmark route's default rows in phase 18b; for B1 also ms_padded and
+bound_ms_padded, the padded mode at the main path's shape), the line
+before it the two WENO
 kernels' times beside those of the kernels they replaced, the last line
 {"ok": true, "device": {...}}. A kernel's time is device time: its
 launches are replayed from a CUDA graph, because launched one by one from
@@ -1503,7 +1511,122 @@ def phase_17(standalone, weno, weno_x):
         weno_x=res[0]["spam_kessler"]["launches"]["weno_x_padded"],
         p3_part2=prod[0]["launches"]["p3_part2"],
         awfl_flux=res[0]["awfl_kessler"]["launches"]["awfl_flux"],
-        backend=backend, b1=b1)
+        backend=backend, b1=b1,
+        counts_17c=(res[0]["spam_kessler"]["counts"], case.CHIP_CASES[0][2]))
+
+
+# phase 18: the benchmark route (pam_tpu_torch/bench.py) and the scaling
+# tool (pam_tpu_torch/measure_scaling.py) as a user runs them. 18a the
+# route's single-config line of record at nens 128; 18b its default rows
+# (bench.py's six) with short runs; 18c the tool's slab configuration
+# (SPAM+SI Kessler, 64x1x50, nens 8, f64) on 1 and on 2 x shards
+BENCH_SINGLE = dict(single=("kessler", "none"), nens=128, steps=10, reps=1,
+                    trace_steps=2)
+BENCH_ROWS = dict(steps=1, reps=1, trace_steps=1, awfl_steps=1)
+BENCH_KEYS = {"metric", "value", "unit", "config", "ms_per_step",
+              "ms_per_step_median", "reps", "device_ms_per_step",
+              "first_step_s", "peak_mib", "chip"}
+SCALING_MESHES = ((1, 1), (1, 2))
+SCALING_STEPS = 2
+
+
+def bench_lines(bench, settings, smi_line):
+    """The route's rows for ``settings``: what it printed, parsed and
+    checked against its contract, and the route's seconds."""
+    import io
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    recs = bench.run(settings, out=buf)
+    secs = time.perf_counter() - t0
+    lines = [json.loads(ln) for ln in buf.getvalue().splitlines()]
+    check(lines == recs and len(recs) == len(bench.rows(settings)),
+          f"phase 18: printed {len(lines)} lines for {len(recs)} rows")
+    for r, row in zip(recs, bench.rows(settings)):
+        check(set(r) == BENCH_KEYS, f"phase 18: keys {sorted(r)}")
+        check(r["chip"] == smi_line, f"phase 18: chip {r['chip']!r} is not "
+              f"nvidia-smi's {smi_line!r}")
+        check(r["config"] == row.config and r["unit"] == "gridpoint-steps/s"
+              and r["value"] > 0 and r["ms_per_step"] > 0
+              and r["reps"] == settings.reps and r["peak_mib"] > 0
+              and r["device_ms_per_step"] > 0 and r["first_step_s"] > 0,
+              f"phase 18: {r}")
+    check(recs[-1]["config"] == "micro=kessler,sgs=none,dycore=spam",
+          f"phase 18: the last line is {recs[-1]['config']}")
+    return recs, secs
+
+
+def phase_18(smi_line, counters, counts_17c):
+    """18a-b the benchmark route, each with every kernel's count at 0
+    just before and read just after; 18c the scaling tool, its counts a
+    step held to 17c's (``counts_17c``: 17c's SPAM+SI Kessler counts and
+    its steps). Returns 18b's launches by kernel."""
+    from pam_tpu_torch import bench, measure_scaling
+
+    def zero():
+        for obj, attr in counters.values():
+            setattr(obj, attr, 0)
+
+    def read():
+        return {k: getattr(obj, attr) for k, (obj, attr) in counters.items()}
+
+    s = bench.Settings(**BENCH_SINGLE)
+    zero()
+    (rec,), secs = bench_lines(bench, s, smi_line)
+    got = read()
+    steps = 1 + bench.WARMUP + s.steps + s.trace_steps
+    check(got["weno_x"] == steps * WENO_CALLS_PER_STEP,
+          f"phase 18a: {got} in {steps} steps")
+    print(f"phase 18a python -m pam_tpu_torch.bench, PAM_BENCH_MICRO="
+          f"kessler NENS 128 STEPS {s.steps} REPS {s.reps}: "
+          + json.dumps(rec) + f"; B1 {got['weno_x']} launches in {steps} "
+          f"steps; {secs:.1f} s", flush=True)
+
+    s = bench.Settings(**BENCH_ROWS)
+    zero()
+    recs, secs = bench_lines(bench, s, smi_line)
+    rows_18b = read()
+    rows = bench.rows(s)
+    per_row = [1 + bench.WARMUP + r.steps + s.trace_steps for r in rows]
+    spam = sum(n for n, r in zip(per_row, rows) if r.dycore == "spam")
+    p3 = sum(n for n, r in zip(per_row, rows) if r.micro == "p3")
+    check(rows_18b["weno_x"] == spam * WENO_CALLS_PER_STEP
+          and rows_18b["p3_part2"] == p3 and rows_18b["sub_cycles"] > 0
+          and rows_18b["awfl_flux"] ==
+          rows_18b["sub_cycles"] * FLUX_CALLS_PER_CYCLE,
+          f"phase 18b: {rows_18b} ({spam} SPAM steps, {p3} P3 steps)")
+    print("phase 18b python -m pam_tpu_torch.bench, the default rows at "
+          f"STEPS {s.steps} REPS {s.reps} TRACE_STEPS {s.trace_steps} "
+          f"AWFL_STEPS {s.awfl_steps}: " + "; ".join(
+              f"{r['config']} {r['ms_per_step']:.3f} ms/step (device "
+              f"{r['device_ms_per_step']:.3f}, peak {r['peak_mib']:.1f} MiB, "
+              f"first step {r['first_step_s']:.2f} s)" for r in recs) +
+          f"; launches {rows_18b}; {secs:.1f} s", flush=True)
+
+    t0 = time.perf_counter()
+    rep = measure_scaling.measure(configs=("slab",), steps=SCALING_STEPS,
+                                  mesh_list=SCALING_MESHES, device="cuda")
+    secs = time.perf_counter() - t0
+    meshes = rep["configs"]["slab"]["meshes"]
+    counts, nsteps = counts_17c
+    want = {k: v / nsteps for k, v in counts.items()}
+    check(meshes[0]["collectives_per_step"] == dict.fromkeys(want, 0.0),
+          f"phase 18c one rank: {meshes[0]['collectives_per_step']}")
+    x2 = meshes[1]
+    check(x2["collectives_per_step"] == want,
+          f"phase 18c x 2: {x2['collectives_per_step']}, 17c: {want}")
+    check(all((x2["bytes_per_step"][k] > 0) == (n > 0)
+              for k, n in x2["collectives_per_step"].items()),
+          f"phase 18c bytes {x2['bytes_per_step']}")
+    print(f"phase 18c python -m pam_tpu_torch.measure_scaling --configs "
+          f"slab --steps {SCALING_STEPS}, meshes (ens, x) "
+          f"{list(SCALING_MESHES)}: " + "; ".join(
+              f"({m['ens_shards']}, {m['x_shards']}) {m['backend']} ms/step "
+              "ranks " + ", ".join(f"{t:.2f}" for t in m["ms_per_step_rank"])
+              + f" together {m['ms_per_step_all']:.2f}, collectives/step "
+              f"{m['collectives_per_step']} (17c's), bytes/step "
+              f"{m['bytes_per_step']}" for m in meshes) + f"; {secs:.1f} s",
+          flush=True)
+    return rows_18b
 
 
 def main():
@@ -1514,6 +1637,7 @@ def main():
     from pam_tpu_torch.driver import mmf, standalone
     from pam_tpu_torch.driver.mmf import setup_supercell_mmf
     from pam_tpu_torch.modules import gcm_forcing
+    from pam_tpu_torch.profile_step import cards
     from pam_tpu_torch.dycore.awfl import AwflDycore
     from pam_tpu_torch.ops import awfl_flux, p3_part2, weno, weno_x
     from pam_tpu_torch.physics.p3 import main as p3main, sedimentation
@@ -1521,10 +1645,8 @@ def main():
     sys.path.insert(0, os.path.join(ROOT, "tools"))
     sys.path.insert(0, os.path.join(ROOT, "tests"))   # the numpy oracles
     import make_torch_golden_init as golden
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60, check=True)
-    print(smi.stdout.strip().splitlines()[0])
+    chip = cards()[0]      # name and power limit, as nvidia-smi gives them
+    print(chip)
     print(f"phase 1 env: torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)} "
           f"count {torch.cuda.device_count()}", flush=True)
@@ -1730,6 +1852,10 @@ def main():
     launches_16 = phase_16(standalone, weno_x, golden, setup_supercell_mmf)
     sharded = phase_17(standalone, weno, weno_x)
     pad32 = sharded["b1"][("float32", 32000, 65)]
+    bench_launches = phase_18(
+        chip,
+        {"weno_x": weno_count, "p3_part2": b4_count, "awfl_flux": b3_count,
+         "sub_cycles": cycle_count}, sharded["counts_17c"])
 
     # the kernels' record: float32 times at the main path's shapes (B4
     # with cloud, rain and ice each at half of the points); no single
@@ -1769,7 +1895,8 @@ def main():
          "launches_layer": launches_16["doublevortex"],
          "launches_gcm_round_trip": launches_16["round_trip"],
          "launches_sharded": sharded["weno_x"], "ms_padded": pad32[0],
-         "bound_ms_padded": pad32[2]},
+         "bound_ms_padded": pad32[2],
+         "launches_bench": bench_launches["weno_x"]},
         {"name": "p3_part2", "route": "cuda",
          "source": "pam_tpu_torch/csrc/p3_part2.cu",
          "replaces": "pam_tpu/physics/p3/main.py:780",
@@ -1778,7 +1905,8 @@ def main():
                             if d == "float64"),
          "ms": b32, "plain_ms": bp32, "bound_ms": b4_bound[0],
          "bound_by": b4_bound[1], "library_ms": None,
-         "launches_sharded": sharded["p3_part2"]},
+         "launches_sharded": sharded["p3_part2"],
+         "launches_bench": bench_launches["p3_part2"]},
         {"name": "awfl_flux", "route": "cuda",
          "source": "pam_tpu_torch/csrc/awfl_flux.cu",
          "replaces": "pam_tpu/ops/awfl_pallas.py:148",
@@ -1789,7 +1917,8 @@ def main():
          "bound_by": b3_bound[1], "library_ms": None,
          "ms_x": x32, "plain_ms_x": xp32,
          "bound_ms_x": bound_ms(x_bytes, x_flops, torch.float32)[0],
-         "launches_sharded": sharded["awfl_flux"]}]}))
+         "launches_sharded": sharded["awfl_flux"],
+         "launches_bench": bench_launches["awfl_flux"]}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -225,6 +225,15 @@ class HostDataManager:
         return bool(self.lib.pam_interface_get_option_bool(_b(name)))
 
     def get_option_str(self, name: str, maxlen: int = 256) -> str:
+        """The string option ``name``, cut to ``maxlen - 1`` characters
+        (the C side writes ``maxlen - 1`` and a terminating NUL)."""
+        if maxlen < 1:
+            # the C side copies maxlen - 1 characters and writes
+            # out[maxlen - 1]: with maxlen 0 that wraps and writes before
+            # the buffer (native/pam_interface.cpp, get_option_string)
+            raise ValueError(f"get_option_str({name!r}, maxlen={maxlen}): "
+                             "maxlen must be at least 1, room for the "
+                             "terminating NUL")
         self._check_option(name, "str")
         buf = ctypes.create_string_buffer(maxlen)
         self.lib.pam_interface_get_option_string(_b(name), buf, maxlen)

@@ -30,7 +30,11 @@ exchange, exchange.h:190-263). The compute stays on the tensor's device.
 ``Mesh.counts`` counts the collectives of each kind made inside the
 context: ``p2p`` one per ring shift (one send and one receive, as one
 ``ppermute`` of pam_tpu), ``all_reduce``, ``all_gather`` and
-``all_to_all`` one per call.
+``all_to_all`` one per call. ``Mesh.bytes`` adds up their payloads by the
+same kinds, numel times itemsize: the tensor a rank sends in each
+message, the buffer it reduces, its part of a gather, the tensor it
+trades in an all-to-all (the bytes of pam_tpu's tools/comm_volume.py,
+which counts each collective's output, but for the gather).
 """
 
 from __future__ import annotations
@@ -149,6 +153,7 @@ def _ring_exchange(mesh, kind: str, sends):
     for buf, dev in bufs:
         outs.append(buf.to(dev) if buf.device != dev else buf)
     mesh.counts["p2p"] += len(sends)
+    mesh.bytes["p2p"] += sum(t.numel() * t.element_size() for t, _ in sends)
     return outs
 
 
@@ -159,6 +164,7 @@ def _all_reduce(mesh, kind: str, v: torch.Tensor, op) -> torch.Tensor:
     w = w.cpu() if _staged(mesh, w) else w.clone()
     dist.all_reduce(w, op=op, group=mesh.group(kind))
     mesh.counts["all_reduce"] += 1
+    mesh.bytes["all_reduce"] += w.numel() * w.element_size()
     return w.to(v.device).reshape(shape)
 
 
@@ -300,6 +306,7 @@ def _all_to_all(mesh, chunks):
     out = torch.empty_like(src)
     dist.all_to_all_single(out, src, group=mesh.group("x"))
     mesh.counts["all_to_all"] += 1
+    mesh.bytes["all_to_all"] += src.numel() * src.element_size()
     return out.to(dev)
 
 

@@ -60,6 +60,8 @@ class Mesh:
     device: torch.device
     groups: dict = dataclasses.field(default_factory=dict)
     counts: dict = dataclasses.field(default_factory=_new_counts)
+    # bytes of the payloads of those collectives, by the same kinds
+    bytes: dict = dataclasses.field(default_factory=_new_counts)
 
     @property
     def world(self) -> int:
@@ -101,8 +103,10 @@ class Mesh:
         return self.groups[kind]
 
     def reset_counts(self):
+        """Zero ``counts`` and ``bytes``."""
         for k in self.counts:
             self.counts[k] = 0
+            self.bytes[k] = 0
 
 
 def _backend_for(device: torch.device, world: int, existing: str = None):
@@ -232,6 +236,7 @@ def gather_state(mesh: Mesh, local: dict) -> dict:
         parts = [torch.empty_like(w) for _ in range(mesh.world)]
         dist.all_gather(parts, w)
         mesh.counts["all_gather"] += 1
+        mesh.bytes["all_gather"] += w.numel() * w.element_size()
         parts = [p.to(dev) for p in parts]
         if v.ndim == 0:
             out[k] = parts[0]

@@ -38,7 +38,6 @@ import collections
 import subprocess
 import time
 
-import numpy as np
 import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
@@ -55,20 +54,30 @@ WARMUP, STEPS, TOP = 3, 5, 12
 OWN_KERNELS = ("weno_x_kernel", "p3_part2_kernel", "awfl_flux_kernel")
 
 
-def timed_steps(drv, state, nsteps):
-    """nsteps CRM steps; returns (state, per-step device ms by CUDA
-    events, host ms/step)."""
-    events = [torch.cuda.Event(enable_timing=True) for _ in range(nsteps + 1)]
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    events[0].record()
-    for i in range(nsteps):
-        state = drv.crm_phys_step(state)
-        events[i + 1].record()
-    torch.cuda.synchronize()
-    host = (time.perf_counter() - t0) * 1e3 / nsteps
-    return state, [events[i].elapsed_time(events[i + 1])
-                   for i in range(nsteps)], host
+def cards() -> list:
+    """Each card's name and power limit, as nvidia-smi gives them."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True)
+    return smi.stdout.strip().splitlines()
+
+
+def timed_steps(step, state, nsteps: int, cuda: bool = True):
+    """``nsteps`` steps; returns (state, ms a step): CUDA events around
+    the whole run on the card (one synchronisation, at the end; the steps
+    may sync with the host inside), the host's clock on the CPU."""
+    if cuda:
+        t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0.record()
+    else:
+        h0 = time.perf_counter()
+    for _ in range(nsteps):
+        state = step(state)
+    if cuda:
+        t1.record()
+        t1.synchronize()
+        return state, t0.elapsed_time(t1) / nsteps
+    return state, (time.perf_counter() - h0) * 1e3 / nsteps
 
 
 def union_us(intervals):
@@ -133,10 +142,7 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_step: torch.cuda.is_available() is false")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60, check=True)
-    print(smi.stdout.strip().splitlines()[0])
+    print(cards()[0])
 
     drv, state = setup_supercell_mmf(nens=args.nens,
                                      dtype=DTYPES[args.dtype],
@@ -148,12 +154,11 @@ def main(argv=None):
     for _ in range(WARMUP):
         state = drv.crm_phys_step(state)
     cycles = AwflDycore.timestep.cycles
-    state, ms, host = timed_steps(drv, state, STEPS)
+    state, ms = timed_steps(drv.crm_phys_step, state, STEPS)
     print(f"{args.dycore} {args.micro}+{args.sgs} "
           f"{'32x32x50 ' if args.grid3d else ''}nens {args.nens} "
           f"{args.dtype}, unprofiled {STEPS} steps: "
-          f"ms/step (CUDA events) mean {np.mean(ms):.3f} median "
-          f"{np.median(ms):.3f}, host {host:.3f} ms/step")
+          f"ms/step (CUDA events) {ms:.3f}")
     if args.dycore == "awfl":
         print(f"AWFL sub-cycles per step: "
               f"{(AwflDycore.timestep.cycles - cycles) / STEPS:.1f}")

@@ -150,11 +150,14 @@ class SpamDycore:
     @staticmethod
     def build_coupled(coupler: Coupler, state, zint, dt_si,
                       si_max_iters: int = 3, si_nquad: int = 2,
-                      linear_system: str = "velocity") -> "SpamDycore":
+                      linear_system: str = "velocity",
+                      si_two_point: bool = False) -> "SpamDycore":
         """The reference's MMF configuration: thermo constants from the
         coupler, SI reference state from the coupler's ref_* columns, and
         the semi-implicit integrator at step dt_si (CoupledTestCase,
-        extrudedmodel.h:5768-6069; core/params.h:148-152)."""
+        extrudedmodel.h:5768-6069; core/params.h:148-152). si_two_point
+        takes the exact two-point discrete gradient (with_si's
+        two_point)."""
         thermo = ConstantKappaVirtualPottemp(
             cst=thermo_constants_from_coupler(coupler))
         dyc = SpamDycore.build(coupler, zint, thermo,
@@ -162,7 +165,8 @@ class SpamDycore:
         refstate = si_mod.build_coupled_reference_state(
             state, dyc.geom, thermo, dyc.varset, coupler.const.grav)
         return dyc.with_si(refstate, dt_si, max_iters=si_max_iters,
-                           nquad=si_nquad, linear_system=linear_system)
+                           nquad=si_nquad, linear_system=linear_system,
+                           two_point=si_two_point)
 
     def with_si(self, refstate, dt_si, max_iters: int = 3, nquad: int = 2,
                 linear_system: str = "velocity",

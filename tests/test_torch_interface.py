@@ -115,6 +115,55 @@ def test_options(dm):
         dm.get_option_str("adv")
 
 
+# get_option_str(name, maxlen=0) with the option set: the C side copies
+# maxlen - 1 characters and writes out[maxlen - 1], which with maxlen 0
+# wraps; run in a subprocess, since pam_tpu's call kills the process
+MAXLEN_ZERO = r"""
+import sys
+sys.path.insert(0, {root!r})
+from {pkg}.interface import HostDataManager
+dm = HostDataManager()
+dm.set_option("micro", "p3")
+try:
+    dm.get_option_str("micro", maxlen=0)
+except ValueError as e:
+    print("ValueError:", e)
+    sys.exit(3)
+print("returned")
+"""
+
+
+@pytest.mark.parametrize("pkg", ["pam_tpu_torch", "pam_tpu"])
+def test_get_option_str_maxlen_zero(pkg):
+    """The port refuses maxlen < 1 with a ValueError that says why (and
+    still reads the option at maxlen 1, 2 and the default); pam_tpu's
+    same call ends the process with a signal (a negative return code,
+    SIGSEGV where the copy runs off the buffer)."""
+    import subprocess
+    import sys
+    proc = subprocess.run(
+        [sys.executable, "-c", MAXLEN_ZERO.format(root=ROOT, pkg=pkg)],
+        cwd=ROOT, capture_output=True, text=True, timeout=120)
+    if pkg == "pam_tpu_torch":
+        assert proc.returncode == 3, proc.stdout + proc.stderr
+        assert "maxlen must be at least 1" in proc.stdout, proc.stdout
+    else:
+        assert proc.returncode < 0, (proc.returncode, proc.stdout,
+                                     proc.stderr[-2000:])
+
+
+def test_get_option_str_short_buffers(dm):
+    """maxlen counts the terminating NUL: maxlen 1 gives "", 3 two
+    characters; maxlen 0 and below raise before the C call."""
+    dm.set_option("micro", "kessler")
+    assert dm.get_option_str("micro", maxlen=1) == ""
+    assert dm.get_option_str("micro", maxlen=3) == "ke"
+    assert dm.get_option_str("micro") == "kessler"
+    for bad in (0, -1):
+        with pytest.raises(ValueError, match="maxlen must be at least 1"):
+            dm.get_option_str("micro", maxlen=bad)
+
+
 def test_mirror_rejects_noncontiguous_and_unsupported(dm):
     big = np.zeros((4, 8))
     with pytest.raises(ValueError, match="contiguous"):

@@ -17,7 +17,8 @@ of configs/input_doublevortex.yaml cut to 8x8, the anelastic oracle case
 of tests/torch_anelastic_case.py builds, and one GCM step of a tiny
 SPAM+Kessler CRM makes the round trip through the port's registry; a
 one-rank sharded CRM step (parallel/{mesh,sharded_step}.py) equals the
-unsharded one."""
+unsharded one; the benchmark route, the scaling tool and the plotting
+utilities import."""
 
 import os
 import subprocess
@@ -150,6 +151,8 @@ out = tmesh.gather_state(tmesh.make_mesh(1, 1, 1, device="cpu"),
                          step(place(state)))
 ref = drv.crm_phys_step(state)
 assert all(torch.equal(out[k], ref[k]) for k in ref)
+from pam_tpu_torch import bench, measure_scaling
+from pam_tpu_torch.utils import plotting
 loaded = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
           or m == "pam_tpu" or m.startswith("pam_tpu.")]
 assert all(sys.modules[m] is None for m in loaded), loaded

@@ -317,6 +317,28 @@ def raise_on_rank_one(rank, world, init):
         return float(comm.pmax_h(torch.ones(3)))
 
 
+def payload_bytes(rank, world, init):
+    """Mesh.counts and Mesh.bytes after each of: one halo_pad (h 3) of a
+    (2, 3, 1, 4) float64 block along x, the same of a float32 block, a
+    halo_pad (h 6) wider than the block (fetched over two hops), and a
+    pmean_h of a (2, 3, 1, 4) float64 block over (-2, -1); and after
+    reset_counts. On mesh (1, 1, world)."""
+    mesh = _mesh(rank, world, init, (1, 1, world), "cpu")
+    out = []
+    a = torch.arange(24, dtype=torch.float64).reshape(2, 3, 1, 4)
+    with comm.axis_ctx(mesh, x=True):
+        for fn in (lambda: comm.halo_pad(a, 3),
+                   lambda: comm.halo_pad(a.float(), 3),
+                   lambda: comm.halo_pad(a, 6),
+                   lambda: comm.pmean_h(a, (-2, -1))):
+            mesh.reset_counts()
+            fn()
+            out.append((dict(mesh.counts), dict(mesh.bytes)))
+    mesh.reset_counts()
+    out.append((dict(mesh.counts), dict(mesh.bytes)))
+    return out
+
+
 # ---------------------------------------------------------------------------
 # chip_smoke.py phase 17: the ranks on one card
 # ---------------------------------------------------------------------------
