@@ -32,7 +32,15 @@ at nens 128 (18a) and its default rows, bench.py's six, with short runs
 (18b), each line held to the route's contract, and python -m
 pam_tpu_torch.measure_scaling's slab configuration on 1 and 2 x shards,
 its collectives a step equal to 17c's and its bytes a step nonzero for
-every kind it counts (18c).
+every kind it counts (18c); and the tridiagonal solves' two routes and
+the port's own start state (phase 19): each call site's solve at the main
+path's shapes on PCR and on Thomas (19a), the Kessler and P3+SHOC
+trajectories on the default route, PCR on the card, against pam_tpu's
+PCR runs (19b), the line of record and the P3+SHOC row on both routes
+(19c), JAX's draw and the golden start states built on the card (19d).
+The golden phases (4, 7, 12, 13, 14a, 15a, 16a) pin the Thomas
+recurrence, the route their files were written with; the other phases
+take the default route.
 
 Usage (from the root of a checkout, on a machine with the card):
 
@@ -48,7 +56,8 @@ launches, with the x call's beside them; launches_sharded, one rank's
 launches on its sharded path in phase 17: B1 in the padded mode on the
 x-sharded SPAM+SI step, B4 on the ensemble-sharded production step, B3
 on the x-sharded AWFL step; launches_bench, its launches in the
-benchmark route's default rows in phase 18b; for B1 also ms_padded and
+benchmark route's default rows in phase 18b; launches_pcr, B1's and B4's
+in phase 19b's trajectories; for B1 also ms_padded and
 bound_ms_padded, the padded mode at the main path's shape), the line
 before it the two WENO
 kernels' times beside those of the kernels they replaced, the last line
@@ -175,6 +184,16 @@ PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 33.5e12}
 def check(cond, msg):
     if not cond:
         raise RuntimeError(f"chip_smoke: {msg}")
+
+
+def thomas_route():
+    """Every tridiagonal solve of the block on the Thomas recurrence, the
+    route the golden files were written with (ops/tridiag.py takes PCR on
+    the card by default; phase 19b holds that route against pam_tpu's PCR
+    runs)."""
+    from pam_tpu_torch.ops import tridiag
+    from torch_jax_refs import tridiag_mode
+    return tridiag_mode(tridiag, "thomas")
 
 
 def bound_ms(nbytes, flops, dtype):
@@ -778,7 +797,7 @@ def phase_14(standalone, weno_x, golden, gw_verification):
     #      the configs cut to 16x12 nens 2 (risingbubble CE SSPRK3,
     #      gravitywave CE SI, supercell MCE_rho SI with 5 iterations and
     #      diffusion), within 1e-9 of pam_tpu's runs, the exact B1 count
-    with tempfile.TemporaryDirectory() as tmp:
+    with tempfile.TemporaryDirectory() as tmp, thomas_route():
         for name in golden.IDEAL_GOLDEN:
             cfg = golden.ideal_small_config(name)
             line, out = run_ideal(standalone, weno_x, cfg, tmp, name)
@@ -896,7 +915,7 @@ def phase_15(standalone, weno_x, golden, mmf_pieces):
     #     the three 3-D goldens on the card, f64, through B1: the 3-D
     #     configs cut to 10x8x10 nens 2 and the coupled step at 12x8x12
     #     nens 2, within 1e-9 of pam_tpu, the exact B1 count
-    with tempfile.TemporaryDirectory() as tmp:
+    with tempfile.TemporaryDirectory() as tmp, thomas_route():
         for name in golden.IDEAL3D_GOLDEN:
             cfg = golden.ideal_small_config(name)
             line, out = run_ideal(standalone, weno_x, cfg, tmp, name)
@@ -913,8 +932,9 @@ def phase_15(standalone, weno_x, golden, mmf_pieces):
     state = state_from_numpy(dict(np.load(golden.path("mmf_spam3d_small"))),
                              "cuda", torch.float64)
     weno_x.weno_edges_x_cuda.launches = 0
-    for _ in range(golden.SPAM3D_NSTEPS):
-        state = drv.crm_phys_step(state)
+    with thomas_route():
+        for _ in range(golden.SPAM3D_NSTEPS):
+            state = drv.crm_phys_step(state)
     launches = weno_x.weno_edges_x_cuda.launches
     check(launches == golden.SPAM3D_NSTEPS * 3 * B1_PER_RHS[2],
           f"phase 15a coupled 3-D: {launches} B1 launches")
@@ -1064,7 +1084,7 @@ def phase_16(standalone, weno_x, golden, setup_supercell_mmf):
     #     bubbles cut to 16x12 and the three layer runs cut to 16x16, nens
     #     2, 10 steps each, within 1e-9 of pam_tpu's runs, the exact B1
     #     count, the anelastic constraint at round-off
-    with tempfile.TemporaryDirectory() as tmp:
+    with tempfile.TemporaryDirectory() as tmp, thomas_route():
         for name in golden.AN_LAYER:
             cfg = golden.ideal_small_config(name)
             if cfg["init_data"] in standalone.LAYER_CASES:
@@ -1629,6 +1649,349 @@ def phase_18(smi_line, counters, counts_17c):
     return rows_18b
 
 
+# phase 19: the tridiagonal solves (pam_tpu_torch/ops/tridiag.py) and the
+# port's own start state. PAM_TRIDIAG's default takes parallel cyclic
+# reduction (PCR) on the card and the Thomas recurrence on the CPU, as
+# pam_tpu takes PCR on an accelerator; the golden phases above pin Thomas.
+# 19a each call site's solve at the main path's shapes, captured from one
+# step of its path: PCR against Thomas on the card and against PCR on the
+# CPU, us and launches a solve on both routes; 19b the SPAM+SI Kessler and
+# P3+SHOC trajectories on the default route against pam_tpu's PCR runs
+# (tests/torch_jax_refs.py); 19c the line of record and the P3+SHOC row
+# of the benchmark route on both routes, in turns; 19d the draw and the
+# start states of setup_supercell_mmf against tests/golden
+#
+# 19a: (PCR vs Thomas on the card, card vs CPU) per dtype, relative to the
+# largest |value| of the solution
+SOLVE_TOL = {torch.float64: (1e-10, 1e-12), torch.float32: (1e-4, 1e-5)}
+# 19c: a row's reps, route by route (thomas, pcr, pcr, thomas, ...), and
+# its steps a rep and traced steps on each route
+ROUTE_ORDER = ("thomas", "pcr", "pcr", "thomas", "thomas", "pcr")
+ROUTE_STEPS = 12
+ROUTE_TRACE_STEPS = 2
+# 19b-d: the golden configurations, f64 on the card
+START_STATES = {"kessler_spam_si": {},
+                "p3_shoc_spam_si": dict(micro="p3", sgs="shoc")}
+
+
+def first_calls(owner, name, run, ncalls=1):
+    """(owner.name, the arguments of its first ``ncalls`` calls while
+    run() runs, tensors cloned)."""
+    fn = getattr(owner, name)
+    calls = []
+    clone = lambda a: (a.clone() if isinstance(a, torch.Tensor) else
+                       [t.clone() for t in a] if isinstance(a, list) else a)
+
+    def record(*args):
+        if len(calls) < ncalls:
+            calls.append(tuple(clone(a) for a in args))
+        return fn(*args)
+    setattr(owner, name, record)
+    try:
+        run()
+    finally:
+        setattr(owner, name, fn)
+    check(len(calls) == ncalls, f"phase 19a: {name} called {len(calls)} "
+          f"times, not {ncalls}")
+    return fn, calls
+
+
+def solve_sites(setup_supercell_mmf, gcm_forcing, standalone, dtype):
+    """{call site: (function, its arguments)}: the first solve of each call
+    site in one step of its path at the main path's width, on the card."""
+    from pam_tpu_torch.physics.sgs.shoc import main as shoc
+    from pam_tpu_torch.spam import anelastic, si
+
+    def step(**kw):
+        drv, state = setup_supercell_mmf(dtype=dtype, device="cuda",
+                                         **{**FULL, **kw})
+        state = gcm_forcing.compute_gcm_forcing_tendencies(
+            drv.coupler, state, drv.dt_gcm)
+        return lambda: drv.crm_phys_step(state)
+
+    sites = {}
+    fn, calls = first_calls(si.CompressibleVelocityLinearSystem, "_tridiag",
+                            step(nens=128))
+    sites["velocity"] = (fn, calls[0])
+    fn, calls = first_calls(si, "_tridiag_real", step(
+        nens=128, dycore_kwargs={"linear_system": "pressure"}))
+    sites["pressure, slab"] = (fn, calls[0])
+    fn, calls = first_calls(si, "_tridiag_real", step(nens=16, **FULL3D), 2)
+    sites["pressure-gravity 3-D, A"] = (fn, calls[0])
+    sites["pressure-gravity 3-D"] = (fn, calls[1])
+    cfg = standalone.load_config(os.path.join(
+        ROOT, "configs", "input_risingbubble_an.yaml"))
+    cfg["f64"] = dtype == torch.float64
+    _, an_step, x, *_ = standalone.idealized_setup(cfg, "cuda")
+    fn, calls = first_calls(anelastic.AnelasticPressureSolver, "_tridiag",
+                            lambda: an_step(*x))
+    sites["anelastic"] = (fn, calls[0])
+    fn, calls = first_calls(shoc, "_solve_shared",
+                            step(nens=128, micro="p3", sgs="shoc"), 2)
+    sites["SHOC u, v"] = (fn, calls[0])
+    sites["SHOC scalars, tracers"] = (fn, calls[1])
+    return sites
+
+
+def on_device(args, device):
+    """A solve's arguments on ``device``; a solver object (the velocity
+    and anelastic systems) becomes its three coefficient stacks."""
+    import types
+    out = []
+    for a in args:
+        if isinstance(a, torch.Tensor):
+            a = a.to(device)
+        elif isinstance(a, list):
+            a = [t.to(device) for t in a]
+        elif hasattr(a, "tri_l"):
+            a = types.SimpleNamespace(**{k: getattr(a, k).to(device) for k
+                                         in ("tri_l", "tri_d", "tri_u")})
+        out.append(a)
+    return out
+
+
+def leaves(x):
+    """The tensors of a solve's result or argument, a list or not."""
+    return list(x) if isinstance(x, (list, tuple)) else [x]
+
+
+def max_rel(ref, got):
+    return max(float((r.cpu() - g.cpu()).abs().max())
+               / max(float(r.abs().max()), 1e-300)
+               for r, g in zip(leaves(ref), leaves(got)))
+
+
+def launches_per_call(fn, calls=2):
+    """Device operations (kernels, copies, fills) a call of fn launches,
+    from a torch.profiler trace of ``calls`` calls."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.device_type == DeviceType.CUDA
+               and not e.name.startswith("pam:")
+               for e in prof.events()) / calls
+
+
+def phase_19a(setup_supercell_mmf, gcm_forcing, standalone, route):
+    """Each call site at the main path's shapes, f32 and f64: returns
+    {(dtype, site): {route: (eager us, graph us, launches), "err": (PCR vs
+    Thomas, card vs CPU)}}."""
+    out = {}
+    for dtype in (torch.float32, torch.float64):
+        sites = solve_sites(setup_supercell_mmf, gcm_forcing, standalone,
+                            dtype)
+        for site, (fn, args) in sites.items():
+            call = lambda: fn(*args)
+            with route("thomas"):
+                x_thomas = call()
+            with route("pcr"):
+                x_pcr = call()
+                x_cpu = fn(*on_device(args, "cpu"))
+            errs = (max_rel(x_thomas, x_pcr), max_rel(x_cpu, x_pcr))
+            tol = SOLVE_TOL[dtype]
+            check(errs[0] < tol[0] and errs[1] < tol[1],
+                  f"phase 19a {site} {name_of(dtype)}: PCR vs Thomas "
+                  f"{errs[0]:.3e}, card vs CPU {errs[1]:.3e}")
+            rhs = max((t for a in args for t in leaves(a)
+                       if isinstance(t, torch.Tensor)), key=torch.numel)
+            rec = {"err": errs, "shape": tuple(rhs.shape),
+                   "dtype": name_of(rhs.dtype)}
+            for mode in ("thomas", "pcr"):
+                with route(mode):
+                    rec[mode] = (cuda_ms(call, 10) * 1e3,
+                                 graph_ms(call, 40) * 1e3,
+                                 launches_per_call(call))
+            out[(name_of(dtype), site)] = rec
+        del sites
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_19b(setup_supercell_mmf, state_from_numpy, counters):
+    """The Kessler and P3+SHOC golden trajectories, f64, on the default
+    route, every count at 0 just before: every solve on PCR, B1 and B4 as
+    the path launches them, every field within 1e-9 of pam_tpu's PCR run.
+    Returns {name: (max rel err by field, counts)}."""
+    from pam_tpu_torch.ops import tridiag
+    from pam_tpu_torch.physics.sgs.shoc import main as shoc
+    from pam_tpu_torch.spam import si
+    from torch_jax_refs import PCR_TRAJECTORIES
+    check(tridiag._TRIDIAG_MODE == "auto", "phase 19b: PAM_TRIDIAG is "
+          f"{tridiag._TRIDIAG_MODE!r}, not the default")
+    out = {}
+    for name, nsteps, _, stem in PCR_TRAJECTORIES:
+        taken = {"pcr": 0, "thomas": 0}
+        wrapped = [(si, "pcr", "pcr"), (si, "thomas", "thomas"),
+                   (tridiag, "pcr", "pcr"),
+                   (shoc, "_thomas_batched", "thomas")]
+        saved = [getattr(m, n) for m, n, _ in wrapped]
+
+        def counted(fn, kind):
+            def run(*a):
+                taken[kind] += 1
+                return fn(*a)
+            return run
+        for (m, n, kind), fn in zip(wrapped, saved):
+            setattr(m, n, counted(fn, kind))
+        for obj, attr in counters.values():
+            setattr(obj, attr, 0)
+        try:
+            state = golden_run(setup_supercell_mmf, state_from_numpy, name,
+                               nsteps, dycore="spam",
+                               **START_STATES[name])
+        finally:
+            for (m, n, _), fn in zip(wrapped, saved):
+                setattr(m, n, fn)
+        counts = {k: getattr(obj, attr) for k, (obj, attr)
+                  in counters.items()}
+        p3 = "micro" in START_STATES[name]
+        # 3 SI solves a step, and SHOC's two
+        check(taken == {"pcr": nsteps * (5 if p3 else 3), "thomas": 0}
+              and counts["weno_x"] == nsteps * WENO_CALLS_PER_STEP
+              and counts["p3_part2"] == (nsteps if p3 else 0),
+              f"phase 19b {name}: solves {taken}, launches {counts}")
+        out[name] = (golden_errors(state, stem, {}), dict(counts, **taken))
+    return out
+
+
+def phase_19c(counters, route):
+    """The benchmark route's Kessler (the line of record) and P3+SHOC rows
+    at nens 128 f32 on both routes in turns (ROUTE_ORDER, ROUTE_STEPS steps
+    a rep), then a trace of ROUTE_TRACE_STEPS steps on each; every count at
+    0 just before a row, read just after. Returns {row: ({route: (best ms,
+    median ms, device ms, launches) a step}, counts, steps)}."""
+    from torch.profiler import ProfilerActivity, profile
+    from pam_tpu_torch import bench
+    from pam_tpu_torch.profile_step import analyse, timed_steps
+    out = {}
+    for micro, sgs in (("kessler", "none"), ("p3", "shoc")):
+        drv, state = bench.setup_config(micro, sgs, 128)
+        step = drv.crm_phys_step
+        for obj, attr in counters.values():
+            setattr(obj, attr, 0)
+        state, _ = timed_steps(step, state, 1 + bench.WARMUP)
+        ms = {"thomas": [], "pcr": []}
+        for mode in ROUTE_ORDER:
+            with route(mode):
+                state, m = timed_steps(step, state, ROUTE_STEPS)
+            ms[mode].append(m)
+        rec = {}
+        for mode in ("thomas", "pcr"):
+            with route(mode), profile(activities=[
+                    ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for _ in range(ROUTE_TRACE_STEPS):
+                    state = step(state)
+                torch.cuda.synchronize()
+            r = analyse(prof.events(), ROUTE_TRACE_STEPS)
+            rec[mode] = (min(ms[mode]), float(np.median(ms[mode])),
+                         r["device_ms_per_step"], r["kernels_per_step"])
+        healthy(state, f"phase 19c {micro}",
+                P3_WATER if micro == "p3" else WATER)
+        counts = {k: getattr(obj, attr) for k, (obj, attr)
+                  in counters.items()}
+        nsteps = (1 + bench.WARMUP + len(ROUTE_ORDER) * ROUTE_STEPS
+                  + 2 * ROUTE_TRACE_STEPS)
+        check(counts["weno_x"] == nsteps * WENO_CALLS_PER_STEP
+              and counts["p3_part2"] == (nsteps if micro == "p3" else 0),
+              f"phase 19c {micro}: {counts} in {nsteps} steps")
+        out[f"{micro}+{sgs}"] = (rec, counts, nsteps)
+        del drv, state
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_19d(setup_supercell_mmf, gcm_forcing):
+    """The port's own draw on this machine against JAX's
+    (tests/golden/perturb_uniform.npz), bit for bit once on the card; the
+    start states of setup_supercell_mmf on the card against
+    tests/golden/<name>_init.npz: the temperature within 1e-14 of its
+    scale, every other field too, a forcing tendency within 1e-14 of its
+    column's scale over dt_gcm. Returns {name: max rel err of temp}."""
+    from pam_tpu_torch.modules import perturb
+    import torch_jax_refs as refs
+    draws = np.load(refs.UNIFORM_PATH)
+    for d in ("float32", "float64"):
+        for seed in refs.UNIFORM_SEEDS:
+            want = draws[refs.uniform_key(d, seed)]
+            got = torch.as_tensor(perturb.uniform(
+                seed, refs.UNIFORM_SHAPE, getattr(torch, d)), device="cuda")
+            check(np.array_equal(got.cpu().numpy().view(f"u{want.itemsize}"),
+                                 want.view(f"u{want.itemsize}")),
+                  f"phase 19d: the draw of seed {seed} in {d} is not JAX's")
+    out = {}
+    for name, kw in START_STATES.items():
+        drv, state = setup_supercell_mmf(**{**GOLDEN_KW, **kw},
+                                         dycore="spam", dtype=torch.float64,
+                                         device="cuda")
+        state = gcm_forcing.compute_gcm_forcing_tendencies(
+            drv.coupler, state, drv.dt_gcm)
+        ref = np.load(os.path.join(GOLDEN, f"{name}_init.npz"))
+        check(sorted(state) == sorted(ref.files), f"phase 19d {name}: keys")
+        for k in ref.files:
+            err, scale = refs.start_state_error(k, state[k].cpu().numpy(),
+                                                ref, drv.dt_gcm)
+            check(err <= 1e-14 * scale, f"phase 19d {name} {k}: {err:.3e} "
+                  f"of {scale:.3e}")
+            if k == "temp":
+                out[name] = err / scale
+    return out
+
+
+def phase_19(setup_supercell_mmf, state_from_numpy, gcm_forcing, standalone,
+             counters):
+    """19a-d; returns 19b's launches by kernel."""
+    from pam_tpu_torch.ops import tridiag
+    from torch_jax_refs import tridiag_mode
+    route = lambda mode: tridiag_mode(tridiag, mode)
+    t0 = time.perf_counter()
+    solves = phase_19a(setup_supercell_mmf, gcm_forcing, standalone, route)
+    secs = [time.perf_counter() - t0]
+    print("phase 19a one solve at the main path's shapes, PCR (the default "
+          "on the card) / Thomas: us a solve by eager launches (by graph "
+          "replay), launches a solve; max rel err PCR vs Thomas, PCR on the "
+          "card vs the CPU: " + "; ".join(
+              f"{d} {site} {rec['shape']} {rec['dtype']} " + " / ".join(
+                  f"{rec[m][0]:.1f} ({rec[m][1]:.1f}) us {rec[m][2]:.0f}"
+                  for m in ("pcr", "thomas"))
+              + f", err {rec['err'][0]:.1e} {rec['err'][1]:.1e}"
+              for (d, site), rec in solves.items()) + f"; {secs[0]:.1f} s",
+          flush=True)
+    runs = phase_19b(setup_supercell_mmf, state_from_numpy, counters)
+    secs.append(time.perf_counter() - t0 - sum(secs))
+    for name, (errs, counts) in runs.items():
+        print(f"phase 19b {name} f64 on the default route, every solve PCR "
+              f"({counts['pcr']} solves, {counts['thomas']} Thomas), B1 "
+              f"{counts['weno_x']}, B4 {counts['p3_part2']}: max rel err vs "
+              "pam_tpu's PCR run " + ", ".join(f"{k} {e:.2e}"
+                                                for k, e in errs.items())
+              + f"; 19b {secs[1]:.1f} s", flush=True)
+    rows = phase_19c(counters, route)
+    secs.append(time.perf_counter() - t0 - sum(secs))
+    for row, (rec, counts, nsteps) in rows.items():
+        print(f"phase 19c bench row {row} nens 128 f32, {len(ROUTE_ORDER)} "
+              f"reps of {ROUTE_STEPS} steps in turns "
+              f"{'/'.join(ROUTE_ORDER)}, ms a step best / median, device ms "
+              f"a step, launches a step ({ROUTE_TRACE_STEPS} traced): " +
+              "; ".join(f"{m} {r[0]:.2f} / {r[1]:.2f}, device {r[2]:.3f}, "
+                        f"{r[3]:.0f} launches" for m, r in rec.items()) +
+              f"; counts in {nsteps} steps {counts}; 19c {secs[2]:.1f} s",
+              flush=True)
+    temp = phase_19d(setup_supercell_mmf, gcm_forcing)
+    print("phase 19d the draw of tests/golden/perturb_uniform.npz bit for "
+          "bit; setup_supercell_mmf on the card builds tests/golden/"
+          "<name>_init.npz, every field within 1e-14: temp max rel err " +
+          ", ".join(f"{k} {v:.1e}" for k, v in temp.items()) +
+          f"; phase 19 {time.perf_counter() - t0:.1f} s", flush=True)
+    return {k: sum(c[k] for _, c in runs.values())
+            for k in ("weno_x", "p3_part2")}
+
+
 def main():
     # 1. environment: a card and the package, before anything is printed
     check(torch.cuda.is_available(), "torch.cuda.is_available() is false")
@@ -1678,8 +2041,9 @@ def main():
 
     # 4. Kessler golden trajectory on the card, f64, through the kernel
     weno_x.weno_edges_x_cuda.launches = 0
-    state = golden_run(setup_supercell_mmf, state_from_numpy,
-                       "kessler_spam_si", dycore="spam")
+    with thomas_route():
+        state = golden_run(setup_supercell_mmf, state_from_numpy,
+                           "kessler_spam_si", dycore="spam")
     check(weno_x.weno_edges_x_cuda.launches == 10 * WENO_CALLS_PER_STEP,
           "golden run did not go through the kernel")
     gerr = golden_errors(state, "kessler_spam_si", {})
@@ -1720,9 +2084,10 @@ def main():
     # 7. P3+SHOC golden trajectory on the card, f64, through both kernels
     for obj, attr in (weno_count, b4_count, sed_count):
         setattr(obj, attr, 0)
-    state = golden_run(setup_supercell_mmf, state_from_numpy,
-                       "p3_shoc_spam_si", micro="p3", sgs="shoc",
-                       dycore="spam")
+    with thomas_route():
+        state = golden_run(setup_supercell_mmf, state_from_numpy,
+                           "p3_shoc_spam_si", micro="p3", sgs="shoc",
+                           dycore="spam")
     check(p3_part2.p3_part2_cuda.launches == 10
           and weno_x.weno_edges_x_cuda.launches == 10 * WENO_CALLS_PER_STEP,
           f"P3+SHOC golden run: {p3_part2.p3_part2_cuda.launches} B4 and "
@@ -1819,8 +2184,9 @@ def main():
     state = state_from_numpy(dict(np.load(os.path.join(
         GOLDEN, "mmf_pamc_small_init.npz"))), "cuda", torch.float64)
     weno_x.weno_edges_x_cuda.launches = 0
-    for _ in range(10):
-        state = drv.crm_phys_step(state)
+    with thomas_route():
+        for _ in range(10):
+            state = drv.crm_phys_step(state)
     check(weno_x.weno_edges_x_cuda.launches == 10 * WENO_CALLS_PER_STEP,
           f"phase 12: {weno_x.weno_edges_x_cuda.launches} x-WENO launches")
     gerr = golden_errors(state, "mmf_pamc_small", {})
@@ -1837,7 +2203,7 @@ def main():
     # 13. the four standalone configs through run_mmf at 65x1x50, each as
     #     its file sets it (nens, dtype, dycore, physics, 2 GCM steps of
     #     45 CRM steps), each with the counters at 0 just before it
-    with tempfile.TemporaryDirectory() as tmp:
+    with tempfile.TemporaryDirectory() as tmp, thomas_route():
         for name in MMF_CONFIGS:
             line, _ = run_config(
                 standalone, mmf,
@@ -1856,6 +2222,9 @@ def main():
         chip,
         {"weno_x": weno_count, "p3_part2": b4_count, "awfl_flux": b3_count,
          "sub_cycles": cycle_count}, sharded["counts_17c"])
+    solve_launches = phase_19(setup_supercell_mmf, state_from_numpy,
+                              gcm_forcing, standalone,
+                              {"weno_x": weno_count, "p3_part2": b4_count})
 
     # the kernels' record: float32 times at the main path's shapes (B4
     # with cloud, rain and ice each at half of the points); no single
@@ -1896,7 +2265,8 @@ def main():
          "launches_gcm_round_trip": launches_16["round_trip"],
          "launches_sharded": sharded["weno_x"], "ms_padded": pad32[0],
          "bound_ms_padded": pad32[2],
-         "launches_bench": bench_launches["weno_x"]},
+         "launches_bench": bench_launches["weno_x"],
+         "launches_pcr": solve_launches["weno_x"]},
         {"name": "p3_part2", "route": "cuda",
          "source": "pam_tpu_torch/csrc/p3_part2.cu",
          "replaces": "pam_tpu/physics/p3/main.py:780",
@@ -1906,7 +2276,8 @@ def main():
          "ms": b32, "plain_ms": bp32, "bound_ms": b4_bound[0],
          "bound_by": b4_bound[1], "library_ms": None,
          "launches_sharded": sharded["p3_part2"],
-         "launches_bench": bench_launches["p3_part2"]},
+         "launches_bench": bench_launches["p3_part2"],
+         "launches_pcr": solve_launches["p3_part2"]},
         {"name": "awfl_flux", "route": "cuda",
          "source": "pam_tpu_torch/csrc/awfl_flux.cu",
          "replaces": "pam_tpu/ops/awfl_pallas.py:148",

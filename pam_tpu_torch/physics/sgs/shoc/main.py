@@ -5,9 +5,10 @@ cloud closure, second/third moment diagnostics, implicit vertical
 diffusion, PBL height diagnosis and the energy fixer.
 
 Whole-tensor torch ops; the tridiagonal implicit solve runs every field
-that shares one matrix through one Thomas recurrence, a Python loop over
-levels in ``pam_tpu``'s recurrence order; the PBL Richardson search is
-an argmax over the scan window.
+that shares one matrix through one solve: PCR (ops/tridiag.py), or on
+the CPU one Thomas recurrence, a Python loop over levels in
+``pam_tpu``'s recurrence order; the PBL Richardson search is an argmax
+over the scan window.
 
 Arrays are (nlev, ...cols) with k=0 the model TOP (``thetal[-1]`` is the
 surface level); interface arrays are (nlev+1, ...cols); tracers are
@@ -20,6 +21,7 @@ import numpy as np
 import torch
 
 from .constants import CONST
+from ....ops import tridiag
 from ...p3.main import murphy_koop_svp
 
 C = CONST
@@ -83,7 +85,8 @@ def _solve_shared(du, dl, d0, rhs_list, tracers=None):
     """Solve every system that shares one (du, dl, d0) matrix in one
     batched tridiagonal solve (the reference factorizes once and
     back-solves per field, shoc.F90:3504-3643); the fields are stacked
-    into one trailing dim.
+    into one trailing dim, so PCR (ops/tridiag.py::use_pcr) takes
+    ceil(log2 nlev) sweeps for all of them and Thomas one recurrence.
 
     rhs_list: list of (nlev, ...); tracers: (nlev, ..., ntr) or None.
     Returns the solved rhs_list (+ tracers appended when given)."""
@@ -91,7 +94,8 @@ def _solve_shared(du, dl, d0, rhs_list, tracers=None):
     if tracers is not None:
         cols.append(tracers)
     R = torch.cat(cols, dim=-1)                            # (nlev, ..., m)
-    X = _thomas_batched(dl[..., None], d0[..., None], du[..., None], R)
+    solve = tridiag.pcr if tridiag.use_pcr(R) else _thomas_batched
+    X = solve(dl[..., None], d0[..., None], du[..., None], R)
     out = list(X[..., :len(rhs_list)].unbind(-1))
     if tracers is not None:
         out.append(X[..., len(rhs_list):])

@@ -84,9 +84,10 @@ class AnelasticPressureSolver:
                                        kfix=kfix)
 
     def _tridiag(self, rhs):
-        """Tridiagonal solve over z batched over (nens, nx) (:3436-3464):
-        the Thomas recurrence with real elimination factors and a complex
-        right-hand side."""
+        """Tridiagonal solve over z batched over (nens, nx) (:3436-3464)
+        with a complex right-hand side: the Thomas recurrence with real
+        elimination factors, or PCR on the coefficients cast to the
+        right-hand side's dtype (si._tridiag_real)."""
         return _tridiag_real(self.tri_l, self.tri_d, self.tri_u, rhs)
 
     def divergence(self, v, w):

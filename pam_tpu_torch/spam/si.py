@@ -34,7 +34,7 @@ import torch
 from torch.profiler import record_function
 
 from ..ops import dft
-from ..ops.tridiag import thomas
+from ..ops.tridiag import pcr, thomas, use_pcr
 from ..parallel import comm
 from ..parallel.mesh import per_member
 from . import operators as op
@@ -413,10 +413,12 @@ class CompressibleVelocityLinearSystem:
     # ------------------------------------------------------------------
     def _tridiag(self, rhs):
         """Complex tridiagonal solve over the nl levels, batched over
-        (nens, nx) (extrudedmodel.h:3025-3050)."""
+        (nens, nx): the Thomas recurrence (extrudedmodel.h:3025-3050) or
+        PCR (ops/tridiag.py::use_pcr)."""
         mv = lambda a: a.movedim(1, 0)
-        return thomas(mv(self.tri_l), mv(self.tri_d), mv(self.tri_u),
-                      mv(rhs)).movedim(0, 1)
+        solve = pcr if use_pcr(rhs) else thomas
+        return solve(mv(self.tri_l), mv(self.tri_d), mv(self.tri_u),
+                     mv(rhs)).movedim(0, 1)
 
     def solve(self, rhs_dens, rhs_v, rhs_w):
         """(extrudedmodel.h solve:2846-3161). rhs_dens (ndens,nens,nz,nx),
@@ -672,10 +674,15 @@ def si_fixed_step(tend, dens, v, w, geop, dt, max_iters: int = 5,
 
 def _tridiag_real(L, D, U, R):
     """Tridiagonal solve along level axis 1 with real (nens, nz, ...)
-    coefficients (broadcastable against R) and a real or complex rhs R;
-    the elimination factors stay real (extrudedmodel.h
-    solve_for_pressure:3806-3830)."""
+    coefficients (broadcastable against R) and a real or complex rhs R:
+    the Thomas recurrence, whose elimination factors stay real
+    (extrudedmodel.h solve_for_pressure:3806-3830), or PCR
+    (ops/tridiag.py::use_pcr) on the coefficients cast to R's dtype, as
+    pam_tpu casts them."""
     mv = lambda a: a.movedim(1, 0)
+    if use_pcr(R):
+        L, D, U = (a.to(R.dtype) for a in (L, D, U))
+        return pcr(mv(L), mv(D), mv(U), mv(R)).movedim(0, 1)
     return thomas(mv(L), mv(D), mv(U), mv(R)).movedim(0, 1)
 
 
@@ -1037,8 +1044,8 @@ class CompressiblePressureGravityLinearSystem(CompressiblePressureLinearSystem):
 
     # ------------------------------------------------------------------
     def _A_solve(self, rhs):
-        """Thomas solve with the x-independent A tridiagonal broadcast over
-        the horizontal dims (prepare_pressure_rhs:4322-4342)."""
+        """Tridiagonal solve with the x-independent A tridiagonal broadcast
+        over the horizontal dims (prepare_pressure_rhs:4322-4342)."""
         return _tridiag_real(self._x(self.A_l), self._x(self.A_d),
                              self._x(self.A_u), rhs)
 

@@ -733,12 +733,7 @@ def test_awfl_golden_init_file_is_current():
     assert sorted(ts) == sorted(k for k in committed.files
                                 if not k.startswith("gcm_forcing_tend_"))
     for k, v in ts.items():
-        a, b = committed[k], v.numpy()
-        if k == "temp":   # the perturbed levels differ by construction
-            a, b = a[:, 3:], b[:, 3:]
-        # the hydrostatic means see the port's own perturbation (0.1 K)
-        tol = 1e-3 if k.startswith("hy_") else 1e-12
-        assert _rel(a, b) < tol, k
+        assert _rel(committed[k], v.numpy()) < 1e-12, k
 
 
 def test_awfl_kessler_trajectory_from_jax_initial_state():
