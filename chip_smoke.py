@@ -5,7 +5,9 @@ width of inputs/input_pamc.yaml (65x1x50 cells, 128 km x 64 km x 20 km):
 SPAM+SI with Kessler microphysics and with the production P3+SHOC
 physics, and the AWFL dycore with Kessler; then the stretched-grid SPAM
 trajectory (phase 12), the four configs/input_mmf_*.yaml through the
-run_mmf of driver/standalone.py as the files set them (phase 13), and the
+run_mmf of driver/standalone.py as the files set them (phase 13: the
+production config's ens_chunk "auto" runs its 512 members as 4 chunks of
+128), and the
 idealized x-z SPAM runs through its run_idealized (phase 14): the three
 idealized golden trajectories (14a) and the seven x-z
 configs/input_<case>.yaml at their files' grids (14b); and 3-D SPAM
@@ -28,8 +30,9 @@ unsharded on the card (17c), and configs/input_mmf_production.yaml's CRM
 step (65x1x50, nens 512, f32) ensemble-sharded, 128 members a rank, with
 no collective (17d); and the benchmark route and the scaling tool
 (phase 18): python -m pam_tpu_torch.bench's single-config line of record
-at nens 128 (18a) and its default rows, bench.py's six, with short runs
-(18b), each line held to the route's contract, and python -m
+at nens 128 (18a) and its default rows, bench.py's six (rows 2-4 in
+chunks of 128, as bench.py runs them), with short runs (18b), each line
+held to the route's contract, and python -m
 pam_tpu_torch.measure_scaling's slab configuration on 1 and 2 x shards,
 its collectives a step equal to 17c's and its bytes a step nonzero for
 every kind it counts (18c); and the tridiagonal solves' two routes and
@@ -37,7 +40,15 @@ the port's own start state (phase 19): each call site's solve at the main
 path's shapes on PCR and on Thomas (19a), the Kessler and P3+SHOC
 trajectories on the default route, PCR on the card, against pam_tpu's
 PCR runs (19b), the line of record and the P3+SHOC row on both routes
-(19c), JAX's draw and the golden start states built on the card (19d).
+(19c), JAX's draw and the golden start states built on the card (19d);
+and ensemble micro-batching (phase 20): driver/mmf.py's chunked routes
+in f64 at 65x1x50 nens 8 as 4 chunks of 2, bit for bit against each other
+and the chunks stepped alone, P3+SHOC against the whole-ensemble step,
+Kessler's chunks with their own rainsplit counts (20a), peak memory and
+ms a step of the production config (P3+SHOC f32) through run_mmf at nens
+4096 in one program and in chunks of 1024, and at 8192 in chunks (20b),
+the benchmark route's rows 2-4 whole beside 18b's chunked records and the
+production config without its ens_chunk (20c).
 The golden phases (4, 7, 12, 13, 14a, 15a, 16a) pin the Thomas
 recurrence, the route their files were written with; the other phases
 take the default route.
@@ -57,7 +68,9 @@ launches on its sharded path in phase 17: B1 in the padded mode on the
 x-sharded SPAM+SI step, B4 on the ensemble-sharded production step, B3
 on the x-sharded AWFL step; launches_bench, its launches in the
 benchmark route's default rows in phase 18b; launches_pcr, B1's and B4's
-in phase 19b's trajectories; for B1 also ms_padded and
+in phase 19b's trajectories; launches_chunked, B1's and B4's in the
+first chunked step of each of phase 20a's two cases; for B1 also
+ms_padded and
 bound_ms_padded, the padded mode at the main path's shape), the line
 before it the two WENO
 kernels' times beside those of the kernels they replaced, the last line
@@ -69,6 +82,7 @@ check raises, so the exit code is then not 0 and no result is printed.
 Needs no network and imports nothing of JAX.
 """
 
+import contextlib
 import json
 import os
 import subprocess
@@ -652,20 +666,13 @@ def records(cfg):
     return n
 
 
-def run_config(standalone, mmf, counters, name, tmp):
-    """configs/input_mmf_<name>.yaml through run_mmf on the card as the
-    file sets it (out_prefix in tmp; the production file writes no output,
-    out_freq -1, and here writes at t=0 and at its end), with every
-    counter set to 0 just before; checks the state, the launch counts and
-    the NetCDF file; returns (printable summary, counts)."""
-    from scipy.io import netcdf_file
-    cfg = standalone.load_config(os.path.join(ROOT, "configs",
-                                              f"input_mmf_{name}.yaml"))
-    cfg["out_prefix"] = os.path.join(tmp, name)
-    if cfg["out_freq"] < 0:
-        cfg["out_freq"] = float(cfg["sim_time"])
+@contextlib.contextmanager
+def timed_chunk_steps(mmf):
+    """MmfDriver._crm_phys_step_single timed with CUDA events while the
+    block runs: yields the list of (start, end) events, one pair a driver
+    step (a chunk's step where the state is chunked)."""
     ms = []
-    step = mmf.MmfDriver.crm_phys_step
+    step = mmf.MmfDriver._crm_phys_step_single
 
     def timed_step(self, state):
         start = torch.cuda.Event(enable_timing=True)
@@ -675,32 +682,65 @@ def run_config(standalone, mmf, counters, name, tmp):
         end.record()
         ms.append((start, end))
         return out
+    mmf.MmfDriver._crm_phys_step_single = timed_step
+    try:
+        yield ms
+    finally:
+        mmf.MmfDriver._crm_phys_step_single = step
+
+
+def crm_step_ms(ms, n_chunks):
+    """ms of each CRM step from timed_chunk_steps' events: a step is its
+    chunks, stepped one after another."""
+    return [ms[i][0].elapsed_time(ms[i + n_chunks - 1][1])
+            for i in range(0, len(ms), n_chunks)]
+
+
+def run_config(standalone, mmf, counters, name, tmp, **changes):
+    """configs/input_mmf_<name>.yaml through run_mmf on the card as the
+    file sets it, updated by ``changes`` (out_prefix in tmp; the
+    production file writes no output, out_freq -1, and here writes at t=0
+    and at its end), with every counter set to 0 just before; checks the
+    state, the launch counts (once a chunk where the file sets an
+    ens_chunk) and the NetCDF file, which holds the full ensemble; returns
+    (printable summary, counts, {"mean", "median": ms a CRM step, "peak":
+    MiB, "wall": s})."""
+    from scipy.io import netcdf_file
+    cfg = standalone.load_config(os.path.join(ROOT, "configs",
+                                              f"input_mmf_{name}.yaml"))
+    cfg.update(changes)
+    cfg["out_prefix"] = os.path.join(tmp, name)
+    if cfg["out_freq"] < 0:
+        cfg["out_freq"] = float(cfg["sim_time"])
+    chunk = standalone.check_ens_chunk(
+        cfg, standalone.mmf_setup_kwargs(cfg, "cuda")) or cfg["nens"]
+    n_chunks = cfg["nens"] // chunk
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for obj, attr in counters.values():
         setattr(obj, attr, 0)
-    mmf.MmfDriver.crm_phys_step = timed_step
-    try:
+    with timed_chunk_steps(mmf) as ms:
         t0 = time.perf_counter()
         state = standalone.run_mmf(cfg, verbose=False, device="cuda")
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    finally:
-        mmf.MmfDriver.crm_phys_step = step
     counts = {k: getattr(obj, attr) for k, (obj, attr) in counters.items()}
-    ms = [a.elapsed_time(b) for a, b in ms]
     f64 = cfg.get("f64", True)
     dycore = cfg.get("dycore", "awfl")
     p3 = cfg.get("micro") == "p3"
-    tag = f"{name} nens {cfg['nens']} {'f64' if f64 else 'f32'} {dycore}"
+    tag = (f"{name} nens {cfg['nens']}"
+           + (f" as {n_chunks} chunks of {chunk}" if n_chunks > 1 else "")
+           + f" {'f64' if f64 else 'f32'} {dycore}")
     nsteps = int(np.ceil(cfg["sim_time"] / cfg["dt_gcm"])) * int(
         round(cfg["dt_gcm"] / cfg["dt_crm_phys"]))
-    check(len(ms) == nsteps, f"{tag}: {len(ms)} CRM steps, not {nsteps}")
+    check(len(ms) == nsteps * n_chunks,
+          f"{tag}: {len(ms)} chunk steps, not {nsteps} x {n_chunks}")
+    ms = crm_step_ms(ms, n_chunks)
     wmax = healthy(state, tag, tuple(k for k in (P3_WATER if p3 else WATER)
                                      if k in state))
-    want = {"weno_x": WENO_CALLS_PER_STEP * nsteps if dycore == "spam"
-            else 0,
-            "p3_part2": nsteps if p3 else 0,
+    want = {"weno_x": WENO_CALLS_PER_STEP * nsteps * n_chunks
+            if dycore == "spam" else 0,
+            "p3_part2": nsteps * n_chunks if p3 else 0,
             "awfl_flux": FLUX_CALLS_PER_CYCLE * counts["sub_cycles"]}
     check(all(counts[k] == v for k, v in want.items())
           and (dycore == "spam") == (counts["sub_cycles"] == 0),
@@ -725,7 +765,10 @@ def run_config(standalone, mmf, counters, name, tmp):
     if dycore == "awfl":
         line += f", {counts['sub_cycles'] / nsteps:.1f} sub-cycles per step"
     del state
-    return line, counts
+    return line, counts, dict(mean=float(np.mean(ms[1:])),
+                              median=float(np.median(ms[1:])),
+                              peak=torch.cuda.max_memory_allocated() / 2**20,
+                              wall=wall)
 
 
 def b1_per_step(cfg, layer=False):
@@ -1579,7 +1622,8 @@ def phase_18(smi_line, counters, counts_17c):
     """18a-b the benchmark route, each with every kernel's count at 0
     just before and read just after; 18c the scaling tool, its counts a
     step held to 17c's (``counts_17c``: 17c's SPAM+SI Kessler counts and
-    its steps). Returns 18b's launches by kernel."""
+    its steps). Returns 18b's launches by kernel and, for each of its
+    chunked rows, (the row, its record, its launches by kernel)."""
     from pam_tpu_torch import bench, measure_scaling
 
     def zero():
@@ -1603,17 +1647,33 @@ def phase_18(smi_line, counters, counts_17c):
 
     s = bench.Settings(**BENCH_ROWS)
     zero()
-    recs, secs = bench_lines(bench, s, smi_line)
+    by_row = []
+    real_row = bench.run_row
+
+    def counted_row(settings, row, chip):
+        before = read()
+        rec = real_row(settings, row, chip)
+        by_row.append((row, rec, {k: v - before[k]
+                                  for k, v in read().items()}))
+        return rec
+    bench.run_row = counted_row
+    try:
+        recs, secs = bench_lines(bench, s, smi_line)
+    finally:
+        bench.run_row = real_row
     rows_18b = read()
     rows = bench.rows(s)
-    per_row = [1 + bench.WARMUP + r.steps + s.trace_steps for r in rows]
+    # chunk steps of each row: rows 2-4 step their chunks one by one
+    per_row = [(1 + bench.WARMUP + r.steps + s.trace_steps)
+               * (r.nens // (r.chunk or r.nens)) for r in rows]
     spam = sum(n for n, r in zip(per_row, rows) if r.dycore == "spam")
     p3 = sum(n for n, r in zip(per_row, rows) if r.micro == "p3")
     check(rows_18b["weno_x"] == spam * WENO_CALLS_PER_STEP
           and rows_18b["p3_part2"] == p3 and rows_18b["sub_cycles"] > 0
           and rows_18b["awfl_flux"] ==
           rows_18b["sub_cycles"] * FLUX_CALLS_PER_CYCLE,
-          f"phase 18b: {rows_18b} ({spam} SPAM steps, {p3} P3 steps)")
+          f"phase 18b: {rows_18b} ({spam} SPAM chunk steps, {p3} P3 "
+          "chunk steps)")
     print("phase 18b python -m pam_tpu_torch.bench, the default rows at "
           f"STEPS {s.steps} REPS {s.reps} TRACE_STEPS {s.trace_steps} "
           f"AWFL_STEPS {s.awfl_steps}: " + "; ".join(
@@ -1646,7 +1706,7 @@ def phase_18(smi_line, counters, counts_17c):
               f"{m['collectives_per_step']} (17c's), bytes/step "
               f"{m['bytes_per_step']}" for m in meshes) + f"; {secs:.1f} s",
           flush=True)
-    return rows_18b
+    return rows_18b, [r for r in by_row if r[0].chunk]
 
 
 # phase 19: the tridiagonal solves (pam_tpu_torch/ops/tridiag.py) and the
@@ -1992,6 +2052,290 @@ def phase_19(setup_supercell_mmf, state_from_numpy, gcm_forcing, standalone,
             for k in ("weno_x", "p3_part2")}
 
 
+# phase 20: ensemble micro-batching (driver/mmf.py: a driver built at a
+# chunk steps any multiple of it in chunks, as pam_tpu's does; run_mmf's
+# ens_chunk; the benchmark route's chunked rows 2-4). 20a agreement on
+# the card in f64 at 65x1x50, nens 8 as 4 chunks of 2: every chunked
+# route bit for bit against the others and against each chunk stepped
+# alone; P3+SHOC against the whole-ensemble step; Kessler, whose chunks
+# take their own rainsplit counts, against it where the counts agree and
+# apart where they differ. 20b peak memory and ms a step of the
+# production config through run_mmf, one program against chunks of 1024.
+# 20c the benchmark route's rows 2-4 whole (PAM_BENCH_NENS's route) at
+# 18b's settings, beside 18b's chunked records; the production config
+# without its ens_chunk (phase 13 runs it chunked)
+#
+# 20a: nens, chunk, dt_gcm of run's one GCM step (4 CRM steps), and the
+# rain (kg/kg of dry density) in levels 25-44 of x columns 30-35 of each
+# chunk's members, so that the chunks take rainsplit counts 1, 1, 2, 2
+MB_NENS, MB_CHUNK, MB_DT_GCM = 8, 2, 80.0
+MB_RAIN = (1e-4, 3e-3, 1e-2, 3e-2)
+MB_TOL = 1e-9
+# 20b: (nens, ens_chunk or None for one program) of
+# configs/input_mmf_production.yaml, each one GCM step of MB_MEM_STEPS CRM
+# steps, the first a warmup; one program of 8192 would need about 85 GB
+# (10.4 MiB a member, PR 11's peaks), so it is not run
+MB_MEM_CASES = ((4096, None), (4096, 1024), (8192, 1024))
+MB_MEM_STEPS = 4
+
+
+def mb_err(k, ref, got, dt_gcm):
+    """Max |got - ref| over the field's largest |value|; a forcing
+    tendency over its source's scale over dt_gcm (the temperature, the
+    wind, else the dry density): most are differences of equal columns."""
+    src = {"gcm_forcing_tend_temp": "temp", "gcm_forcing_tend_uvel": "uvel",
+           "gcm_forcing_tend_vvel": "uvel"}.get(k, "density_dry")
+    scale = float(ref[k].abs().max())
+    if k.startswith("gcm_forcing_tend_"):
+        scale = max(scale, float(ref[src].abs().max()) / dt_gcm)
+    return float((ref[k] - got[k]).abs().max()) / max(scale, 1e-300)
+
+
+def mb_same(a, b):
+    return sorted(a) == sorted(b) and all(torch.equal(a[k], b[k]) for k in a)
+
+
+def phase_20a(mmf, gcm_forcing, counters):
+    """The chunked routes in f64: returns {case: summary}."""
+    import dataclasses
+    from pam_tpu_torch.physics import kessler
+    n = MB_NENS // MB_CHUNK
+    out = {}
+    for name, micro, sgs in (("Kessler", "kessler", "none"),
+                             ("P3+SHOC", "p3", "shoc")):
+        kw = dict(FULL, micro=micro, sgs=sgs, dt_gcm=MB_DT_GCM,
+                  dtype=torch.float64, device="cuda")
+        whole, st = mmf.setup_supercell_mmf(nens=MB_NENS, **kw)
+        st = gcm_forcing.compute_gcm_forcing_tendencies(whole.coupler, st,
+                                                        whole.dt_gcm)
+        if micro == "kessler":
+            pr = torch.zeros_like(st["precip_liquid"])
+            for i, q in enumerate(MB_RAIN):
+                m = slice(i * MB_CHUNK, (i + 1) * MB_CHUNK)
+                pr[m, 25:45, :, 30:36] = q * st["density_dry"][m, 25:45, :,
+                                                               30:36]
+            st["precip_liquid"] = pr
+        drv, _ = mmf.setup_supercell_mmf(nens=MB_CHUNK, **kw)
+        torch.cuda.synchronize()
+        for obj, attr in counters.values():
+            setattr(obj, attr, 0)
+        auto = drv.crm_phys_step(st)
+        counts = {k: getattr(obj, attr) for k, (obj, attr)
+                  in counters.items()}
+        check(counts["weno_x"] == WENO_CALLS_PER_STEP * n
+              and counts["p3_part2"] == (n if micro == "p3" else 0),
+              f"phase 20a {name}: one chunked step launched {counts}")
+        routes = {"crm_phys_step_microbatched":
+                  drv.crm_phys_step_microbatched(st, n),
+                  "crm_phys_step_hostchunked":
+                  drv.crm_phys_step_hostchunked(st)}
+        chunks = mmf._split_ens(st, n)
+        alone, rainsplit = [], []
+        for c in chunks:
+            alone.append(drv.crm_phys_step(c))
+            rainsplit.append(kessler.kessler_column.rainsplit)
+        alone = mmf._join_ens(alone)
+        check(mb_same(auto, alone) and all(mb_same(r, alone)
+                                           for r in routes.values()),
+              f"phase 20a {name}: a chunked step is not the chunks alone "
+              "bit for bit")
+        run_host = drv.run(st, MB_DT_GCM)
+        run_unrolled = dataclasses.replace(drv, mb_mode="unrolled").run(
+            st, MB_DT_GCM)
+        run_alone = mmf._join_ens([drv.run(c, MB_DT_GCM) for c in chunks])
+        check(mb_same(run_host, run_alone)
+              and mb_same(run_unrolled, run_alone),
+              f"phase 20a {name}: run's modes are not the chunks run alone "
+              "bit for bit")
+        ref = whole.crm_phys_step(st)
+        whole_split = kessler.kessler_column.rainsplit
+        healthy(ref, f"phase 20a {name}", WATER if micro == "kessler"
+                else P3_WATER)
+        per_chunk = []
+        for i in range(n):
+            m = slice(i * MB_CHUNK, (i + 1) * MB_CHUNK)
+            part = {k: v[m] for k, v in ref.items()}
+            got = {k: v[m] for k, v in auto.items()}
+            per_chunk.append(max(mb_err(k, part, got, MB_DT_GCM)
+                                 for k in ref))
+        if micro == "kessler":
+            check(len(set(rainsplit)) > 1 and whole_split == max(rainsplit),
+                  f"phase 20a: rainsplit counts {rainsplit}, whole "
+                  f"{whole_split}")
+            for i, (r, e) in enumerate(zip(rainsplit, per_chunk)):
+                m = slice(i * MB_CHUNK, (i + 1) * MB_CHUNK)
+                rain = mb_err("precip_liquid",
+                              {"precip_liquid": ref["precip_liquid"][m]},
+                              {"precip_liquid": auto["precip_liquid"][m]},
+                              MB_DT_GCM)
+                check((r == whole_split and e < MB_TOL)
+                      or (r != whole_split and rain > 1e-10),
+                      f"phase 20a Kessler chunk {i}: rainsplit {r} (whole "
+                      f"{whole_split}), max err {e:.3e}, rain {rain:.3e}")
+        else:
+            check(max(per_chunk) < MB_TOL,
+                  f"phase 20a P3+SHOC chunked vs whole: {per_chunk}")
+        out[name] = dict(counts=counts, rainsplit=rainsplit,
+                         whole_split=whole_split, per_chunk=per_chunk)
+        del whole, drv, st, auto, routes, chunks, alone, ref
+        del run_host, run_unrolled, run_alone
+        gc_cuda()
+    return out
+
+
+def gc_cuda():
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def state_mib(state):
+    """MiB of the storages that a state holds, each counted once (a field
+    may be a view of a larger buffer)."""
+    held = {v.untyped_storage().data_ptr(): v.untyped_storage().nbytes()
+            for v in state.values()}
+    return sum(held.values()) / 2**20
+
+
+def phase_20b(standalone, mmf, counters):
+    """configs/input_mmf_production.yaml through run_mmf at MB_MEM_CASES
+    (nens and ens_chunk changed, dt_gcm MB_MEM_STEPS CRM steps, one GCM
+    step, no output), every counter at 0 just before: {(nens, chunk):
+    (peak MiB, the final state's MiB, ms a CRM step, B1 and B4 launches
+    a CRM step, s)}."""
+    base = standalone.load_config(os.path.join(
+        ROOT, "configs", "input_mmf_production.yaml"))
+    out = {}
+    for nens, chunk in MB_MEM_CASES:
+        gc_cuda()
+        cfg = dict(base, nens=nens, ens_chunk=chunk, out_freq=-1.0,
+                   dt_gcm=MB_MEM_STEPS * base["dt_crm_phys"])
+        cfg["sim_time"] = cfg["dt_gcm"]
+        n = nens // (chunk or nens)
+        tag = f"phase 20b nens {nens} chunk {chunk}"
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for obj, attr in counters.values():
+            setattr(obj, attr, 0)
+        t0 = time.perf_counter()
+        with timed_chunk_steps(mmf) as ev:
+            st = standalone.run_mmf(cfg, verbose=False, device="cuda")
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        check(len(ev) == MB_MEM_STEPS * n,
+              f"{tag}: {len(ev)} chunk steps, not {MB_MEM_STEPS} x {n}")
+        ms = crm_step_ms(ev, n)
+        counts = {k: getattr(obj, attr) / MB_MEM_STEPS
+                  for k, (obj, attr) in counters.items()}
+        check(counts["weno_x"] == WENO_CALLS_PER_STEP * n
+              and counts["p3_part2"] == n, f"{tag}: {counts} a step")
+        check(int(st["temp"].shape[0]) == nens, f"{tag}: nens of the state")
+        healthy(st, tag, P3_WATER)
+        out[(nens, chunk)] = (peak, state_mib(st), float(np.mean(ms[1:])),
+                              counts, secs)
+        del st
+    gc_cuda()
+    return out
+
+
+def phase_20c(counters, smi_line, chunked_rows):
+    """The benchmark route's rows 2-4 whole, at 18b's settings, beside
+    18b's records of them chunked (``chunked_rows``: phase_18's): {config:
+    {way: (record, B1 and B4 launches a step)}}."""
+    import dataclasses
+    from pam_tpu_torch import bench
+    s = bench.Settings(**BENCH_ROWS)
+    out = {}
+    for row, rec, launched in chunked_rows:
+        steps = 1 + bench.WARMUP + s.reps * row.steps + s.trace_steps
+        whole = dataclasses.replace(row, chunk=None,
+                                    extra=f",nens={row.nens}")
+        gc_cuda()
+        for obj, attr in counters.values():
+            setattr(obj, attr, 0)
+        got = bench.run_row(s, whole, smi_line)
+        ways = {"chunked": (rec, launched),
+                "whole": (got, {k: getattr(obj, attr)
+                                for k, (obj, attr) in counters.items()})}
+        for way, (r, c) in ways.items():
+            n = row.nens // (row.chunk if way == "chunked" else row.nens)
+            c = {k: v / steps for k, v in c.items()}
+            check(c["weno_x"] == WENO_CALLS_PER_STEP * n
+                  and c["p3_part2"] == (n if row.micro == "p3" else 0)
+                  and r["device_ms_per_step"] > 0 and r["peak_mib"] > 0,
+                  f"phase 20c {r['config']} {way}: {c} a step, {r}")
+            ways[way] = (r, c)
+        out[row.config] = ways
+    gc_cuda()
+    return out
+
+
+def phase_20(mmf, gcm_forcing, standalone, counters, chip, production,
+             chunked_rows):
+    """20a-c; ``production``: phase 13's chunked run of the production
+    config (its summary and stats); ``chunked_rows``: 18b's chunked rows.
+    Returns 20a's launches."""
+    t0 = time.perf_counter()
+    agree = phase_20a(mmf, gcm_forcing, counters)
+    secs = [time.perf_counter() - t0]
+    for name, r in agree.items():
+        print(f"phase 20a {name} f64 65x1x50 nens {MB_NENS} as "
+              f"{MB_NENS // MB_CHUNK} chunks of {MB_CHUNK}: the automatic "
+              "route, crm_phys_step_microbatched, crm_phys_step_hostchunked "
+              "and the chunks stepped alone bit for bit, run's host and "
+              "unrolled modes and the chunks run alone bit for bit (1 GCM "
+              f"step of {MB_DT_GCM:g} s); one chunked step B1 "
+              f"{r['counts']['weno_x']} B4 {r['counts']['p3_part2']}; "
+              + (f"rainsplit by chunk {r['rainsplit']}, whole "
+                 f"{r['whole_split']}; " if name == "Kessler" else "")
+              + "max rel err vs the whole-ensemble step by chunk "
+              + ", ".join(f"{e:.2e}" for e in r["per_chunk"])
+              + f"; {chip}", flush=True)
+    mem = phase_20b(standalone, mmf, counters)
+    secs.append(time.perf_counter() - t0 - sum(secs))
+    print("phase 20b configs/input_mmf_production.yaml (P3+SHOC SPAM+SI "
+          "65x1x50 f32) through run_mmf on the default route, 1 GCM step of "
+          f"{MB_MEM_STEPS} CRM steps, the first a warmup (CUDA events), peak "
+          "from setup to the returned state: " + "; ".join(
+              f"nens {nens} " + (f"as {nens // c} chunks of {c}" if c
+                                 else "in one program")
+              + f": peak {p:.1f} MiB (final state {sm:.1f} MiB), {ms:.2f} "
+              f"ms a step, B1 {cn['weno_x']:g} B4 {cn['p3_part2']:g} a step "
+              f"({t:.1f} s)"
+              for (nens, c), (p, sm, ms, cn, t) in mem.items())
+          + f"; {chip}; 20b {secs[1]:.1f} s", flush=True)
+    rows = phase_20c(counters, chip, chunked_rows)
+    for config, rec in rows.items():
+        print(f"phase 20c bench row {config} at 18b's settings "
+              f"({json.dumps(BENCH_ROWS)}), chunked (18b) / whole: "
+              + "; ".join(
+                  f"{way} {g['ms_per_step']:.2f} ms a step (median "
+                  f"{g['ms_per_step_median']:.2f}), device "
+                  f"{g['device_ms_per_step']:.3f}, peak {g['peak_mib']:.1f} "
+                  f"MiB, first step {g['first_step_s']:.2f} s, B1 "
+                  f"{c['weno_x']:g} B4 {c['p3_part2']:g} a step"
+                  for way, (g, c) in rec.items())
+              + f"; {chip}", flush=True)
+    secs.append(time.perf_counter() - t0 - sum(secs))
+    with tempfile.TemporaryDirectory() as tmp, thomas_route():
+        line, _, stats = run_config(standalone, mmf, counters, "production",
+                                    tmp, ens_chunk=None)
+    secs.append(time.perf_counter() - t0 - sum(secs))
+    print(f"phase 20c configs/input_mmf_production.yaml, 2 GCM steps, both "
+          "on the Thomas route as phase 13 (not the card's default, PCR): "
+          f"with its ens_chunk (phase 13) {production[1]['mean']:.2f} ms a "
+          f"step mean, {production[1]['median']:.2f} median, peak "
+          f"{production[1]['peak']:.1f} MiB, {production[1]['wall']:.2f} s; "
+          f"without: {stats['mean']:.2f} mean, {stats['median']:.2f} median"
+          f", peak {stats['peak']:.1f} MiB, {stats['wall']:.2f} s ({line}); "
+          f"{chip}; phase 20 {time.perf_counter() - t0:.1f} s (20a "
+          f"{secs[0]:.1f}, 20b {secs[1]:.1f}, 20c rows {secs[2]:.1f}, "
+          f"production {secs[3]:.1f})", flush=True)
+    return {k: sum(r["counts"][k] for r in agree.values())
+            for k in ("weno_x", "p3_part2")}
+
+
 def main():
     # 1. environment: a card and the package, before anything is printed
     check(torch.cuda.is_available(), "torch.cuda.is_available() is false")
@@ -2201,14 +2545,16 @@ def main():
     del drv, state
 
     # 13. the four standalone configs through run_mmf at 65x1x50, each as
-    #     its file sets it (nens, dtype, dycore, physics, 2 GCM steps of
-    #     45 CRM steps), each with the counters at 0 just before it
+    #     its file sets it (nens, dtype, dycore, physics, ens_chunk, 2 GCM
+    #     steps of 45 CRM steps), each with the counters at 0 just before it
     with tempfile.TemporaryDirectory() as tmp, thomas_route():
         for name in MMF_CONFIGS:
-            line, _ = run_config(
+            line, _, stats = run_config(
                 standalone, mmf,
                 {"weno_x": weno_count, "p3_part2": b4_count,
                  "awfl_flux": b3_count, "sub_cycles": cycle_count}, name, tmp)
+            if name == "production":
+                production = (line, stats)
             print(f"phase 13 run_mmf {line}", flush=True)
 
     phase_14(standalone, weno_x, golden, gw_verification)
@@ -2218,13 +2564,18 @@ def main():
     launches_16 = phase_16(standalone, weno_x, golden, setup_supercell_mmf)
     sharded = phase_17(standalone, weno, weno_x)
     pad32 = sharded["b1"][("float32", 32000, 65)]
-    bench_launches = phase_18(
+    bench_launches, chunked_rows = phase_18(
         chip,
         {"weno_x": weno_count, "p3_part2": b4_count, "awfl_flux": b3_count,
          "sub_cycles": cycle_count}, sharded["counts_17c"])
     solve_launches = phase_19(setup_supercell_mmf, state_from_numpy,
                               gcm_forcing, standalone,
                               {"weno_x": weno_count, "p3_part2": b4_count})
+    chunked_launches = phase_20(
+        mmf, gcm_forcing, standalone,
+        {"weno_x": weno_count, "p3_part2": b4_count,
+         "awfl_flux": b3_count, "sub_cycles": cycle_count}, chip, production,
+        chunked_rows)
 
     # the kernels' record: float32 times at the main path's shapes (B4
     # with cloud, rain and ice each at half of the points); no single
@@ -2266,7 +2617,8 @@ def main():
          "launches_sharded": sharded["weno_x"], "ms_padded": pad32[0],
          "bound_ms_padded": pad32[2],
          "launches_bench": bench_launches["weno_x"],
-         "launches_pcr": solve_launches["weno_x"]},
+         "launches_pcr": solve_launches["weno_x"],
+         "launches_chunked": chunked_launches["weno_x"]},
         {"name": "p3_part2", "route": "cuda",
          "source": "pam_tpu_torch/csrc/p3_part2.cu",
          "replaces": "pam_tpu/physics/p3/main.py:780",
@@ -2277,7 +2629,8 @@ def main():
          "bound_by": b4_bound[1], "library_ms": None,
          "launches_sharded": sharded["p3_part2"],
          "launches_bench": bench_launches["p3_part2"],
-         "launches_pcr": solve_launches["p3_part2"]},
+         "launches_pcr": solve_launches["p3_part2"],
+         "launches_chunked": chunked_launches["p3_part2"]},
         {"name": "awfl_flux", "route": "cuda",
          "source": "pam_tpu_torch/csrc/awfl_flux.cu",
          "replaces": "pam_tpu/ops/awfl_pallas.py:148",

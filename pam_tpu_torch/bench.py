@@ -17,15 +17,27 @@ stdout as soon as the row finishes:
      (10) steps a rep;
   6. the line of record, last: Kessler on SPAM+SI at nens 128.
 
+Rows 2-4 run as ``bench.py`` runs them (bench.py:141-179): the driver is
+built at ``driver/mmf.py::pick_ens_chunk(65, 1, 50, f32, nens)``, 128
+members, the state at the row's ensemble (``state_only``) with its
+forcing tendencies computed once by the chunk driver's coupler, and the
+state is split once into chunks; a step runs every chunk through the
+chunk driver in turn (each with its own Kessler rainsplit count, so the
+trajectory is ``bench.py``'s), and the timing waits for the last chunk.
+Their config strings end in ``,nens=<n>,ens_chunk=<chunk>``.
+
 Setting any of ``PAM_BENCH_MICRO`` (kessler), ``PAM_BENCH_SGS`` (none)
-or ``PAM_BENCH_DYCORE`` (spam) runs that one configuration instead.
+or ``PAM_BENCH_DYCORE`` (spam) runs that one configuration instead, in
+one program of ``PAM_BENCH_NENS`` members (so ``PAM_BENCH_MICRO=p3
+PAM_BENCH_SGS=shoc PAM_BENCH_NENS=512`` is row 2 unchunked).
 ``PAM_BENCH_STEPS`` (60) steps a rep, ``PAM_BENCH_REPS`` (3) reps,
 ``PAM_BENCH_TRACE_STEPS`` (10) traced steps (0: no trace),
-``PAM_BENCH_LINSYS`` (velocity) and ``PAM_BENCH_TWOPOINT`` (1: the SI
-step's exact two-point discrete gradient) keep ``bench.py``'s meanings.
-The TPU's knobs have no counterpart: one program runs the whole
-ensemble, so there is no ensemble micro-batching or chunking and no
-compilation cache.
+``PAM_BENCH_LINSYS`` (velocity), ``PAM_BENCH_TWOPOINT`` (1: the SI
+step's exact two-point discrete gradient),
+``PAM_BENCH_ENS_MICROBATCH`` (a chunk: the rows that pick no chunk run
+the driver at it, chunked as above) and ``PAM_BENCH_KESSLER_CHUNK``
+(``KesslerMicro.ens_chunk`` of the Kessler rows) keep ``bench.py``'s
+meanings. There is no compilation cache.
 
 Each row: the first step (``first_step_s``, which includes building the
 CUDA kernels at their first use), 3 warmup steps, then ``reps`` runs of
@@ -65,7 +77,7 @@ import time
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from .driver.mmf import setup_supercell_mmf
+from .driver.mmf import _split_ens, pick_ens_chunk, setup_supercell_mmf
 from .modules import gcm_forcing
 from .profile_step import analyse, cards, timed_steps
 
@@ -81,6 +93,10 @@ def log(*a):
     print(*a, file=sys.stderr, flush=True)
 
 
+def _int_or_none(text):
+    return int(text) if text else None
+
+
 @dataclasses.dataclass(frozen=True)
 class Settings:
     """The route's knobs, under bench.py's environment names."""
@@ -94,6 +110,8 @@ class Settings:
     nens_big: int = 512
     nens_big2: int = 1024
     awfl_steps: int = 10
+    ens_microbatch: int = None    # the driver's chunk of a row with none
+    kessler_chunk: int = None     # KesslerMicro.ens_chunk
     single: tuple = None      # (micro, sgs) of a single-config run
     device: str = "cuda"
 
@@ -114,6 +132,10 @@ class Settings:
                    nens_big=int(env.get("PAM_BENCH_NENS_BIG", "512")),
                    nens_big2=int(env.get("PAM_BENCH_NENS_BIG2", "1024")),
                    awfl_steps=int(env.get("PAM_BENCH_AWFL_STEPS", "10")),
+                   ens_microbatch=_int_or_none(
+                       env.get("PAM_BENCH_ENS_MICROBATCH")),
+                   kessler_chunk=_int_or_none(
+                       env.get("PAM_BENCH_KESSLER_CHUNK")),
                    single=single,
                    device=device or env.get("PAM_BENCH_DEVICE", "cuda"))
 
@@ -126,6 +148,7 @@ class Row:
     dycore: str
     steps: int
     extra: str = ""           # appended to the config string
+    chunk: int = None         # the driver's ensemble, if not nens
 
     @property
     def config(self) -> str:
@@ -138,28 +161,38 @@ def rows(s: Settings) -> list:
     of record."""
     if s.single is not None:
         return [Row(*s.single, s.nens, s.dycore, s.steps)]
-    big = [Row("p3", "shoc", s.nens_big, "spam", s.steps,
-               f",nens={s.nens_big}")]
+
+    def chunked(micro, sgs, nens):
+        ck = pick_ens_chunk(GRID["nx"], GRID["ny"], GRID["nz"], DTYPE, nens)
+        return Row(micro, sgs, nens, "spam", s.steps,
+                   f",nens={nens},ens_chunk={ck}", ck)
+    big = [chunked("p3", "shoc", s.nens_big)]
     if s.nens_big2:
-        big.append(Row("p3", "shoc", s.nens_big2, "spam", s.steps,
-                       f",nens={s.nens_big2}"))
+        big.append(chunked("p3", "shoc", s.nens_big2))
     return ([Row("p3", "shoc", s.nens, "spam", s.steps)] + big +
-            [Row("kessler", "none", s.nens_big, "spam", s.steps,
-                 f",nens={s.nens_big}"),
+            [chunked("kessler", "none", s.nens_big),
              Row("kessler", "none", s.nens, "awfl", s.awfl_steps),
              Row("kessler", "none", s.nens, "spam", s.steps)])
 
 
 def setup_config(micro: str, sgs: str, nens: int, dycore: str = "spam",
                  linsys: str = "velocity", two_point: bool = False,
-                 device="cuda"):
-    """bench.py's configuration (bench.py:142-148) built by the port, with
-    the GCM forcing tendencies applied once: (driver, state)."""
+                 device="cuda", drv_nens: int = None, micro_kwargs=None):
+    """bench.py's configuration (bench.py:142-165) built by the port, with
+    the GCM forcing tendencies applied once: (driver, state). With
+    ``drv_nens`` below nens the driver is built at drv_nens and the state
+    (``state_only``) at nens, its tendencies from the chunk driver's
+    coupler."""
+    kw = dict(GRID, micro=micro, sgs=sgs, dycore=dycore, dtype=DTYPE,
+              device=device,
+              dycore_kwargs=({"linear_system": linsys,
+                              "si_two_point": two_point}
+                             if dycore == "spam" else None))
     drv, state = setup_supercell_mmf(
-        **GRID, nens=nens, micro=micro, sgs=sgs, dycore=dycore,
-        dtype=DTYPE, device=device,
-        dycore_kwargs=({"linear_system": linsys, "si_two_point": two_point}
-                       if dycore == "spam" else None))
+        **kw, nens=drv_nens or nens,
+        micro_kwargs=micro_kwargs if micro == "kessler" else None)
+    if drv_nens and drv_nens != nens:
+        _, state = setup_supercell_mmf(**kw, nens=nens, state_only=True)
     state = gcm_forcing.compute_gcm_forcing_tendencies(drv.coupler, state,
                                                        drv.dt_gcm)
     return drv, state
@@ -182,21 +215,33 @@ def run_row(s: Settings, row: Row, chip: str) -> dict:
     cuda = torch.device(s.device).type == "cuda"
     if cuda:
         torch.cuda.reset_peak_memory_stats()
-    drv, state = setup_config(row.micro, row.sgs, row.nens, row.dycore,
-                              s.linsys, s.two_point, s.device)
-    step = drv.crm_phys_step
+    drv_nens = row.chunk or s.ens_microbatch or row.nens
+    drv, state = setup_config(
+        row.micro, row.sgs, row.nens, row.dycore, s.linsys, s.two_point,
+        s.device, drv_nens,
+        {"ens_chunk": s.kessler_chunk} if s.kessler_chunk else None)
+    if drv_nens != row.nens:
+        # split once; a step runs every chunk through the chunk driver in
+        # turn (bench.py:151-176)
+        state = list(_split_ens(state, drv.n_chunks(state)))
+        step = drv.step_chunks
+    else:
+        step = drv.crm_phys_step
     t0 = time.perf_counter()
     state, _ = timed_steps(step, state, 1, cuda)
     first_s = time.perf_counter() - t0
-    tag = f"[{row.micro}+{row.sgs} {row.dycore} nens {row.nens}]"
+    tag = (f"[{row.micro}+{row.sgs} {row.dycore} nens {row.nens} driver "
+           f"{drv_nens}]")
     log(f"{tag} first step: {first_s:.2f} s")
     state, _ = timed_steps(step, state, WARMUP, cuda)
     ms_reps = []
     for _ in range(s.reps):
         state, ms = timed_steps(step, state, row.steps, cuda)
         ms_reps.append(ms)
-    bad = [k for k, v in state.items()
-           if v.is_floating_point() and not bool(torch.isfinite(v).all())]
+    parts = state if drv_nens != row.nens else (state,)
+    bad = sorted({k for part in parts for k, v in part.items()
+                  if v.is_floating_point()
+                  and not bool(torch.isfinite(v).all())})
     if bad:
         log(f"ERROR: non-finite state after the {row.config} row: {bad}")
         sys.exit(1)

@@ -1,16 +1,25 @@
 """MMF standalone driver: GCM loop x CRM physics loop (port of
-pam_tpu/driver/mmf.py:71-407; ref standalone/mmf_simplified/
+pam_tpu/driver/mmf.py:29-407; ref standalone/mmf_simplified/
 driver.cpp:237-272 — per GCM step compute the forcing tendencies, then
 per CRM step apply forcing -> dycore -> sponge -> sgs -> micro).
 
-One CRM step is eager PyTorch over the whole ensemble. The TPU's
-micro-batching routes and their VMEM calibration are not ported: on the
-H100 one program runs the whole ensemble.
+One CRM step is eager PyTorch over the driver's ensemble. A driver built
+at a chunk of the ensemble steps any exact multiple of it in chunks, as
+pam_tpu's does (ensemble micro-batching): ``crm_phys_step`` routes such a
+state through ``crm_phys_step_microbatched``, ``crm_phys_step_hostchunked``
+is the same from the host, and ``run`` in ``mb_mode`` "host" keeps the
+state chunked across the GCM loop. Each chunk is a dense copy of its
+members, stepped by the chunk driver as a state of its own size; the only
+coupling across members in a step, Kessler's rainsplit minimum, becomes
+one per chunk (physics/kessler.py, ``KesslerMicro.ens_chunk``).
+``pick_ens_chunk`` keeps pam_tpu's chunk, so "auto" picks what pam_tpu
+picks.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Callable
 
 import numpy as np
@@ -27,6 +36,60 @@ from ..physics.sgs import shoc
 from ..spam.dycore import SpamDycore
 from . import supercell_column
 
+# the routes of MmfDriver.run for a state of several chunks
+MB_MODES = ("host", "unrolled")
+
+
+def pick_ens_chunk(nx: int, ny: int, nz: int, dtype=torch.float32,
+                   nens_total: int = None) -> int:
+    """The largest power-of-two ensemble chunk whose per-field column
+    block stays within pam_tpu's budget of 65*50*4 bytes * 128 members,
+    clamped to a divisor of ``nens_total`` when a total is given
+    (pam_tpu/driver/mmf.py:29-50, the itemsize from the torch dtype).
+
+    The budget is pam_tpu's calibration on a TPU v5e (the CRM step's
+    working set stays in VMEM up to 128 members of the 65x1x50 f32
+    grid). It says nothing about the H100; it is kept so that "auto"
+    picks pam_tpu's chunk, because the chunk decides Kessler's rainsplit
+    trip counts and with them the trajectory."""
+    per_member = nx * ny * nz * dtype.itemsize
+    budget = 65 * 50 * 4 * 128
+    chunk = 2 ** max(0, int(math.floor(math.log2(max(
+        1.0, budget / max(per_member, 1))))))
+    if nens_total is not None:
+        while chunk > 1 and nens_total % chunk != 0:
+            chunk //= 2
+        chunk = min(chunk, nens_total)
+    return max(chunk, 1)
+
+
+def _split_ens(state, n_chunks: int) -> tuple:
+    """Every state leaf cut into ``n_chunks`` equal blocks of members
+    along the leading axis: a tuple of chunk states. Each block is a
+    dense copy (in the leaf's dtype and device, contiguous), not a view,
+    so an in-place write to a chunk cannot reach its neighbours and the
+    kernels get the layouts of a state of the chunk's size."""
+    for k, v in state.items():
+        if v.dim() == 0 or v.shape[0] % n_chunks:
+            raise ValueError(
+                f"state[{k!r}] has shape {tuple(v.shape)}; micro-batching "
+                f"into {n_chunks} chunks needs a leading axis that they "
+                "divide")
+    return tuple({k: v[i * (v.shape[0] // n_chunks):
+                       (i + 1) * (v.shape[0] // n_chunks)].clone(
+                           memory_format=torch.contiguous_format)
+                  for k, v in state.items()} for i in range(n_chunks))
+
+
+def _join_ens(chunks, consume: bool = False) -> dict:
+    """The chunk states concatenated back along the leading axis. With
+    ``consume`` each field is popped from the chunks as it is joined, so
+    the join holds one field more than the state, not a second state."""
+    if consume:
+        return {k: torch.cat([c.pop(k) for c in chunks])
+                for k in list(chunks[0])}
+    return {k: torch.cat([c[k] for c in chunks]) for k in chunks[0]}
+
 
 @dataclasses.dataclass(eq=False)
 class MmfDriver:
@@ -40,15 +103,38 @@ class MmfDriver:
     apply_gcm_forcing: bool = True
     dt_gcm: float = 900.0
     dt_crm_phys: float = 20.0
+    # how ``run`` steps a state of several chunks (pam_tpu's mb_mode):
+    #   "host"     — split once, then every chunk through the GCM loop on
+    #                its own (forcing and steps), joined for each callback
+    #                and at the end;
+    #   "unrolled" — the full state between steps, split and joined by
+    #                every crm_phys_step (pam_tpu's one program per step)
+    mb_mode: str = "host"
 
-    def crm_phys_step(self, state):
-        """One CRM physics step over the whole ensemble."""
+    def __post_init__(self):
+        if self.mb_mode not in MB_MODES:
+            raise ValueError(f"mb_mode={self.mb_mode!r}: expected one of "
+                             f"{MB_MODES}")
+
+    def n_chunks(self, state) -> int:
+        """How many driver-sized chunks ``state`` holds; a state whose
+        ensemble is not a multiple of the driver's raises."""
         total = int(state["temp"].shape[0])
-        if total != self.coupler.nens:
+        built = int(self.coupler.nens)
+        if total % built != 0:
             raise ValueError(
                 f"state carries nens={total} but the driver was built with "
-                f"nens={self.coupler.nens}; build the driver at the state's "
-                "ensemble size (micro-batching is not ported)")
+                f"nens={built}; micro-batching needs an exact multiple")
+        return total // built
+
+    def crm_phys_step(self, state):
+        """One CRM physics step. A state that carries an exact multiple of
+        the driver's ensemble goes through
+        :meth:`crm_phys_step_microbatched` in chunks of the driver's size
+        (pam_tpu's automatic route, pam_tpu/driver/mmf.py:95-116)."""
+        n = self.n_chunks(state)
+        if n > 1:
+            return self.crm_phys_step_microbatched(state, n)
         return self._crm_phys_step_single(state)
 
     def _crm_phys_step_single(self, state):
@@ -75,21 +161,108 @@ class MmfDriver:
                 state = self.rad.timestep(state, self.dt_crm_phys)
         return state
 
+    def _forcing(self, state):
+        """The GCM forcing tendencies of ``state``, chunk by chunk when it
+        holds several: they are per member, and on the chunks' shapes they
+        take the reduction order that the host route and a chunk stepped
+        alone take (pam_tpu computes them on the full state here, the same
+        values up to that order)."""
+        n = self.n_chunks(state)
+        if n == 1:
+            return gcm_forcing.compute_gcm_forcing_tendencies(
+                self.coupler, state, self.dt_gcm)
+        return _join_ens([gcm_forcing.compute_gcm_forcing_tendencies(
+            self.coupler, c, self.dt_gcm) for c in _split_ens(state, n)])
+
     def gcm_step(self, state):
         """One GCM step: forcing tendencies (unless apply_gcm_forcing is
-        false), then dt_gcm/dt_crm_phys CRM steps."""
+        false), then dt_gcm/dt_crm_phys CRM steps, each through
+        :meth:`crm_phys_step` (so in chunks for a multiple of the
+        driver's ensemble)."""
         if self.apply_gcm_forcing:
-            state = gcm_forcing.compute_gcm_forcing_tendencies(
-                self.coupler, state, self.dt_gcm)
+            state = self._forcing(state)
         for _ in range(int(round(self.dt_gcm / self.dt_crm_phys))):
             state = self.crm_phys_step(state)
         return state
 
+    def crm_phys_step_microbatched(self, state, n_chunks: int):
+        """One CRM step of a state of ``n_chunks`` times the driver's
+        ensemble: the state is split into dense chunks of the driver's
+        size, each is stepped in turn, and the chunks are joined. Members
+        are independent CRMs, so this is the full step but for Kessler's
+        rainsplit minimum, which becomes one per chunk.
+
+        pam_tpu unrolls up to 8 chunks into one program, chained by
+        optimization barriers (``PAM_MB_SERIALIZE``), and maps over more
+        with ``lax.map``; both only shape XLA's schedule. Eager PyTorch
+        runs the chunks in order already, so neither has a counterpart
+        here."""
+        nens = self.coupler.nens * n_chunks
+        for k, v in state.items():
+            if v.dim() == 0 or v.shape[0] != nens:
+                raise ValueError(
+                    f"crm_phys_step_microbatched: state[{k!r}] has shape "
+                    f"{tuple(v.shape)}; every leaf must carry the full "
+                    f"ensemble (leading axis {nens} = driver nens "
+                    f"{self.coupler.nens} x n_chunks {n_chunks})")
+        return _join_ens(self.step_chunks(list(_split_ens(state,
+                                                           n_chunks))))
+
+    def step_chunks(self, chunks: list) -> list:
+        """Each chunk of the list stepped in turn, in place: a chunk's
+        input is let go as soon as its output is there, so the chunks
+        hold about one state between them."""
+        for i in range(len(chunks)):
+            chunks[i] = self._crm_phys_step_single(chunks[i])
+        return chunks
+
+    def crm_phys_step_hostchunked(self, state):
+        """One CRM step of a multiple of the driver's ensemble, the
+        chunks stepped from the host (pam_tpu/driver/mmf.py:227-260). In
+        eager PyTorch every step is launched from the host, so this is
+        :meth:`crm_phys_step`'s automatic route."""
+        return self.crm_phys_step(state)
+
     def run(self, state, sim_time: float, callback: Callable = None):
         """GCM loop over sim_time (driver.cpp:237-272); callback(state,
-        elapsed) after every GCM step."""
+        elapsed) after every GCM step. A state of several driver-sized
+        chunks runs as ``mb_mode`` says: "host" splits it once and runs
+        every chunk through each GCM step (forcing, then the CRM steps),
+        joining them for each callback and at the end; "unrolled" runs
+        :meth:`gcm_step` on the full state.
+
+        ``state`` may also be a list of driver-sized chunk states (what
+        ``_split_ens`` gives), which "host" takes over: it steps them in
+        place and empties them into the joined result, so a caller that
+        keeps no other reference to the state holds one copy of it
+        besides a chunk's working set (run_mmf hands its state over so).
+        "unrolled" joins such a list first."""
+        nsteps_gcm = int(np.ceil(sim_time / self.dt_gcm))
         etime = 0.0
-        for _ in range(int(np.ceil(sim_time / self.dt_gcm))):
+        if isinstance(state, list):
+            for c in state:
+                if int(c["temp"].shape[0]) != self.coupler.nens:
+                    raise ValueError(
+                        f"a chunk carries nens={int(c['temp'].shape[0])} but "
+                        f"the driver was built with nens={self.coupler.nens};"
+                        " micro-batching takes chunks of the driver's size")
+            if self.mb_mode != "host":
+                state = _join_ens(state)
+        elif self.mb_mode == "host" and self.n_chunks(state) > 1:
+            state = list(_split_ens(state, self.n_chunks(state)))
+        if isinstance(state, list):
+            ncrm = int(round(self.dt_gcm / self.dt_crm_phys))
+            for _ in range(nsteps_gcm):
+                if self.apply_gcm_forcing:
+                    for i in range(len(state)):
+                        state[i] = self._forcing(state[i])
+                for _ in range(ncrm):
+                    self.step_chunks(state)
+                etime += self.dt_gcm
+                if callback is not None:
+                    callback(_join_ens(state), etime)
+            return _join_ens(state, consume=True)
+        for _ in range(nsteps_gcm):
             state = self.gcm_step(state)
             etime += self.dt_gcm
             if callback is not None:

@@ -7,9 +7,11 @@ The MMF config keys (sim_time, crm_nx/ny/nz, nens, xlen/ylen/zlen,
 vcoords, dt_gcm, dt_crm_phys, crm_per_phys, out_freq, out_prefix,
 io_backend, micro, sgs, dycore, f64, ens_chunk) are those of
 configs/input_mmf_*.yaml, the names the reference's YAML inputs use.
-``ens_chunk`` is checked as pam_tpu checks it and then not used: pam_tpu
-runs a large ensemble in micro-batches, the port runs the whole ensemble
-as one program, and the two give the same result. A config with
+``ens_chunk`` (an integer that divides nens, or "auto" for
+driver/mmf.py::pick_ens_chunk, pam_tpu's chunk) runs the ensemble in
+micro-batches as pam_tpu runs it: the driver is built at the chunk, the
+state at the full ensemble, and MmfDriver.run steps the chunks from the
+host (Kessler's rainsplit count is then one per chunk). A config with
 ``idealized: true`` or ``mode: idealized`` (configs/input_<case>.yaml)
 runs through run_idealized.
 
@@ -148,13 +150,22 @@ def build_zint(cfg) -> np.ndarray:
         return np.array(f.variables["vertical_interfaces"][:])
 
 
-def check_ens_chunk(cfg, nens: int):
-    """Refuse an ``ens_chunk`` that pam_tpu refuses: "auto", or a divisor
-    of nens (pam_tpu/driver/standalone.py:75-83). The port runs the whole
-    ensemble in one program whatever it says."""
-    chunk = cfg.get("ens_chunk")
-    if chunk and chunk != "auto" and nens % int(chunk) != 0:
-        raise ValueError(f"ens_chunk={int(chunk)} must divide nens={nens}")
+def check_ens_chunk(cfg, kw: dict):
+    """The ensemble chunk of ``cfg`` for the setup arguments ``kw``, as
+    pam_tpu/driver/standalone.py:75-83 reads ``ens_chunk``: None when it
+    is unset (or 0), driver/mmf.py::pick_ens_chunk for "auto", else the
+    integer, which must divide nens (pam_tpu's ValueError otherwise)."""
+    from .mmf import pick_ens_chunk
+    chunk, nens = cfg.get("ens_chunk"), kw["nens"]
+    if not chunk:
+        return None
+    if chunk == "auto":
+        chunk = pick_ens_chunk(kw["nx"], kw["ny"], kw["nz"], kw["dtype"],
+                               nens)
+    chunk = int(chunk)
+    if nens % chunk != 0:
+        raise ValueError(f"ens_chunk={chunk} must divide nens={nens}")
+    return chunk
 
 
 def mmf_setup_kwargs(cfg: dict, device="cuda") -> dict:
@@ -178,20 +189,31 @@ def run_mmf(cfg: dict, verbose: bool = True, device="cuda"):
     """MMF (supercell column, GCM-forced) run, the non-idealized branch of
     driver.cpp:221-272, on ``device``; returns the final state. Writes
     ``<out_prefix>.nc`` (or ``.h5`` with io_backend hdf5) at t=0 and every
-    out_freq seconds of simulated time when out_freq >= 0."""
-    from .mmf import setup_supercell_mmf
+    out_freq seconds of simulated time when out_freq >= 0. With an
+    ``ens_chunk`` below nens the driver is built at the chunk and the
+    state (``state_only``) at nens, and the writer describes the full
+    ensemble (pam_tpu/driver/standalone.py:71-94). The state is handed
+    to ``MmfDriver.run`` as a list of driver-sized chunks, which it takes
+    over."""
+    from .mmf import _split_ens, setup_supercell_mmf
     from ..io.output import make_writer
 
     if is_idealized(cfg):
         raise NotImplementedError(
             "an idealized config runs through run_idealized, not run_mmf")
     kw = mmf_setup_kwargs(cfg, device)
-    check_ens_chunk(cfg, kw["nens"])
-    drv, state = setup_supercell_mmf(**kw)
+    chunk = check_ens_chunk(cfg, kw)
+    if chunk and chunk < kw["nens"]:
+        drv, _ = setup_supercell_mmf(**dict(kw, nens=chunk))
+        _, state = setup_supercell_mmf(**kw, state_only=True)
+        writer_cpl = dataclasses.replace(drv.coupler, nens=kw["nens"])
+    else:
+        drv, state = setup_supercell_mmf(**kw)
+        writer_cpl = drv.coupler
     out_freq = cfg.get("out_freq", -1.0)
     writer = None
     if out_freq >= 0:
-        writer = make_writer(drv.coupler, state, cfg.get("out_prefix", "out"),
+        writer = make_writer(writer_cpl, state, cfg.get("out_prefix", "out"),
                              cfg.get("io_backend", "netcdf"))
         writer.write(state, 0.0)
 
@@ -210,6 +232,11 @@ def run_mmf(cfg: dict, verbose: bool = True, device="cuda"):
             print(f"Etime , dtphys, maxw: {etime} , "
                   f"{drv.dt_crm_phys} , {maxw:10.5f}", flush=True)
 
+    # the state handed over in chunks of the driver's size (one chunk
+    # unchunked): run steps them in place, so the run holds one copy of
+    # the state besides a chunk's working set
+    n = drv.n_chunks(state)
+    state = list(_split_ens(state, n)) if n > 1 else [state]
     try:
         state = drv.run(state, cfg["sim_time"], cb)
     finally:

@@ -8,8 +8,9 @@ value > 0, ms_per_step > 0 and reps; plus the port's own keys
 (first_step_s, peak_mib, chip) and no baseline ratio (the baseline is a
 TPU figure). Once through the single-config route, once through the
 default rows at full width (65x1x50) with tiny ensembles and one step
-of each kind. The Kessler row's start state is pam_tpu's, within float32
-rounding.
+of each kind, and once through a row run in chunks (bench.py's rows 2-4
+run so, each chunk stepped alone). The Kessler row's start state is
+pam_tpu's, within float32 rounding.
 """
 
 import json
@@ -79,14 +80,15 @@ def test_single_config_route():
 def test_default_rows_at_full_width():
     """bench.py's rows in its order, the nens 1024 row skipped
     (PAM_BENCH_NENS_BIG2=0), each line printed, the line of record last;
-    the big rows name their ensemble, and no line carries a chunk."""
+    the big rows name their ensemble and pick_ens_chunk's chunk, as
+    bench.py prints them (4 of 4 here, so they run in one program)."""
     recs, _ = run_bench({"PAM_BENCH_NENS": "2", "PAM_BENCH_NENS_BIG": "4",
                          "PAM_BENCH_NENS_BIG2": "0",
                          "PAM_BENCH_AWFL_STEPS": "1"})
     assert [r["config"] for r in recs] == [
         "micro=p3,sgs=shoc,dycore=spam",
-        "micro=p3,sgs=shoc,dycore=spam,nens=4",
-        "micro=kessler,sgs=none,dycore=spam,nens=4",
+        "micro=p3,sgs=shoc,dycore=spam,nens=4,ens_chunk=4",
+        "micro=kessler,sgs=none,dycore=spam,nens=4,ens_chunk=4",
         "micro=kessler,sgs=none,dycore=awfl",
         RECORD]
     for r, nens in zip(recs, (2, 4, 4, 2, 2)):
@@ -106,6 +108,95 @@ def test_rows_with_the_nens_1024_row():
     assert [(r.micro, r.sgs, r.dycore, r.steps) for r in bench.rows(one)] == \
         [("kessler", "none", "awfl", 7)]
     assert one.device == "cuda"
+
+
+def test_big_rows_carry_bench_py_chunks():
+    """Rows 2-4 are bench.py's (bench.py:282-308): the driver at
+    pick_ens_chunk(65, 1, 50, f32, nens), 128 members, and the config
+    strings end in ,nens=<n>,ens_chunk=128; the other rows run their
+    ensemble in one program."""
+    rows = bench.rows(bench.Settings())
+    assert [(r.config, r.nens, r.chunk) for r in rows] == [
+        ("micro=p3,sgs=shoc,dycore=spam", 128, None),
+        ("micro=p3,sgs=shoc,dycore=spam,nens=512,ens_chunk=128", 512, 128),
+        ("micro=p3,sgs=shoc,dycore=spam,nens=1024,ens_chunk=128", 1024,
+         128),
+        ("micro=kessler,sgs=none,dycore=spam,nens=512,ens_chunk=128", 512,
+         128),
+        ("micro=kessler,sgs=none,dycore=awfl", 128, None),
+        (RECORD, 128, None)]
+    # the unchunked 512 stays reachable as a single config
+    one = bench.Settings.from_env({"PAM_BENCH_MICRO": "p3",
+                                   "PAM_BENCH_SGS": "shoc",
+                                   "PAM_BENCH_NENS": "512"})
+    assert [(r.config, r.nens, r.chunk) for r in bench.rows(one)] == [
+        ("micro=p3,sgs=shoc,dycore=spam", 512, None)]
+
+
+def test_chunk_knobs_keep_bench_py_meanings():
+    """PAM_BENCH_ENS_MICROBATCH sizes the driver of a row that picks no
+    chunk (bench.py:128-141), PAM_BENCH_KESSLER_CHUNK is Kessler's
+    ens_chunk (bench.py:124-127); unset, neither applies."""
+    s = bench.Settings.from_env({"PAM_BENCH_ENS_MICROBATCH": "64",
+                                 "PAM_BENCH_KESSLER_CHUNK": "8"})
+    assert (s.ens_microbatch, s.kessler_chunk) == (64, 8)
+    s = bench.Settings.from_env({"PAM_BENCH_ENS_MICROBATCH": "",
+                                 "PAM_BENCH_KESSLER_CHUNK": ""})
+    assert (s.ens_microbatch, s.kessler_chunk) == (None, None)
+    drv, state = bench.setup_config("kessler", "none", 4, device="cpu",
+                                    drv_nens=2,
+                                    micro_kwargs={"ens_chunk": 1})
+    assert drv.coupler.nens == 2 and drv.micro.ens_chunk == 1
+    assert state["temp"].shape[0] == 4
+    p3, _ = bench.setup_config("p3", "shoc", 2, device="cpu",
+                               micro_kwargs={"ens_chunk": 1})
+    assert p3.coupler.nens == 2
+
+
+def test_chunked_row_runs():
+    """A row run in chunks at full width: the Kessler line of record at
+    nens 4 with the driver at 2 (PAM_BENCH_ENS_MICROBATCH), Kessler's own
+    chunk at 1; one line, the ensemble's gridpoints over the best ms."""
+    recs, err = run_bench({"PAM_BENCH_MICRO": "kessler",
+                           "PAM_BENCH_NENS": "4",
+                           "PAM_BENCH_ENS_MICROBATCH": "2",
+                           "PAM_BENCH_KESSLER_CHUNK": "1"})
+    assert [r["config"] for r in recs] == [RECORD]
+    assert recs[0]["value"] == pytest.approx(65 * 50 * 4 /
+                                             recs[0]["ms_per_step"] * 1e3)
+    assert "nens 4 driver 2]" in err
+
+
+def test_chunked_route_steps_each_chunk_alone(monkeypatch):
+    """run_row's chunked step is the chunk driver's step of each chunk in
+    turn: after the route's steps the chunks equal the chunk driver's
+    steps of the split state, bit for bit (float32, 16x1x12 to keep it
+    small)."""
+    monkeypatch.setattr(bench, "GRID", dict(bench.GRID, nx=16, nz=12,
+                                            xlen=32000.0))
+    steps = []
+    real = bench.timed_steps
+
+    def timed(step, state, n, cuda=True):
+        out = real(step, state, n, cuda)
+        steps.append((n, out[0]))
+        return out
+    monkeypatch.setattr(bench, "timed_steps", timed)
+    s = bench.Settings(steps=1, reps=1, trace_steps=0, device="cpu")
+    row = bench.Row("kessler", "none", 4, "spam", 1, chunk=2)
+    bench.run_row(s, row, "cpu")
+    n_run = sum(n for n, _ in steps)
+    drv, state = bench.setup_config("kessler", "none", 4, device="cpu",
+                                    drv_nens=2)
+    from pam_tpu_torch.driver.mmf import _split_ens
+    chunks = _split_ens(state, 2)
+    for _ in range(n_run):
+        chunks = [drv.crm_phys_step(c) for c in chunks]
+    got = steps[-1][1]
+    assert len(got) == 2
+    for c, ref in zip(got, chunks):
+        for k, v in ref.items():
+            assert torch.equal(c[k], v), k
 
 
 def test_no_card_and_no_cpu_request_raises(monkeypatch):

@@ -16,6 +16,7 @@
   the same step as pam_tpu.
 """
 
+import dataclasses
 import os
 import sys
 
@@ -183,7 +184,11 @@ def test_run_calls_back_after_every_gcm_step():
     out = drv.run(state, 80.0, callback=lambda s, t: seen.append(t))
     assert seen == [40.0, 80.0]
     assert all(bool(torch.isfinite(v).all()) for v in out.values())
+    # a state whose ensemble is not a multiple of the driver's is refused
+    # (a multiple is stepped in chunks: tests/test_torch_microbatch.py)
+    two = dataclasses.replace(drv, coupler=dataclasses.replace(drv.coupler,
+                                                               nens=2))
     with pytest.raises(ValueError, match="nens"):
-        drv.crm_phys_step(state_from_numpy(
-            {k: np.concatenate([v.numpy()] * 2) for k, v in state.items()},
+        two.crm_phys_step(state_from_numpy(
+            {k: np.concatenate([v.numpy()] * 3) for k, v in state.items()},
             "cpu", torch.float64))

@@ -87,6 +87,15 @@ def ranks(jax_kessler, tmp_path_factory):
 
 
 @pytest.fixture(scope="module")
+def chunk_ranks(jax_kessler, tmp_path_factory):
+    """Host chunks through the sharded step on 4 ranks
+    (tests/torch_sharding_case.py::host_chunks)."""
+    return tmesh.spawn_ranks(
+        case.host_chunks, 4, args=(jax_kessler[0],), timeout=240,
+        rendezvous_dir=str(tmp_path_factory.mktemp("rdzv")))
+
+
+@pytest.fixture(scope="module")
 def prims(tmp_path_factory):
     return tmesh.spawn_ranks(
         case.primitives, WORLD, timeout=240,
@@ -177,7 +186,8 @@ def test_rainsplit_is_per_ensemble_block(ranks, jax_kessler):
     """Rain in the first half of the members only: each ensemble block
     takes its own rainsplit count (pam_tpu/physics/kessler.py:86-91), so
     the 2-way ensemble-sharded step equals two unsharded half-ensemble
-    steps (pam_tpu holds it against ens_chunk, which the port has not)."""
+    steps, as it equals the step of a driver built at half the ensemble
+    (tests/test_torch_microbatch.py holds that route)."""
     drv, st = case.setup(state=jax_kessler[0])
     st = case.rain_in_first_half(st)
     halves = []
@@ -198,6 +208,15 @@ def test_ens_only_step_is_collective_free(ranks, kessler):
                for r in ranks)
     drv, st = kessler
     _compare(_np(drv.crm_phys_step(st)), ranks[0]["out"]["ens_only"])
+
+
+def test_host_chunks_through_the_sharded_step(chunk_ranks, kessler):
+    """Host micro-batching composes with sharding: 2 chunks of 4 members,
+    each through sharded_crm_step of a driver built at 4 on (ens 2, x 2),
+    match the unsharded step of all 8 (pam_tpu's
+    test_explicit_sharded_step_composes_with_host_chunking)."""
+    drv, st = kessler
+    _compare(_np(drv.crm_phys_step(st)), chunk_ranks[0]["out"])
 
 
 def test_x_sharded_step_collective_profile(ranks):

@@ -307,6 +307,21 @@ def steps(rank, world, init, kessler_state, device="cpu",
     return result
 
 
+def host_chunks(rank, world, init, kessler_state):
+    """Host micro-batching through the sharded step (pam_tpu's
+    test_explicit_sharded_step_composes_with_host_chunking): the SMALL
+    SPAM+SI Kessler state of 8 members split into 2 chunks of 4, each
+    stepped by a driver built at 4 through ``sharded_crm_step`` on mesh
+    (ens 2, x 2) and gathered. Rank 0 returns the joined state."""
+    from pam_tpu_torch.driver.mmf import _join_ens, _split_ens
+    mesh = _mesh(rank, world, init, (2, 1, 2), "cpu")
+    drv, st = setup(state=kessler_state, nens=SMALL["nens"] // 2)
+    step, place = sharded_crm_step(drv, mesh)
+    out = _join_ens([gather_state(mesh, step(place(c)))
+                     for c in _split_ens(st, 2)])
+    return {"out": _np(out)} if rank == 0 else {}
+
+
 def raise_on_rank_one(rank, world, init):
     """Rank 1 raises while the others wait in an all_reduce that it never
     joins (the launcher's fail-fast check)."""
