@@ -48,7 +48,18 @@ Kessler's chunks with their own rainsplit counts (20a), peak memory and
 ms a step of the production config (P3+SHOC f32) through run_mmf at nens
 4096 in one program and in chunks of 1024, and at 8192 in chunks (20b),
 the benchmark route's rows 2-4 whole beside 18b's chunked records and the
-production config without its ens_chunk (20c).
+production config without its ens_chunk (20c); and the compiled CRM step
+(phase 21): MmfDriver._graphed_single, the step captured into one CUDA
+graph whose Kessler, P3 sedimentation and AWFL loops run as CUDA WHILE
+nodes, against the eager step bit for bit for the three stacks at
+65x1x50 in f32 and f64 with the same trip counts, on a rainy Kessler
+state and through the PCR goldens (21a), its replays with no
+synchronising call and its host launches beside the eager step's (21b),
+both routes of the benchmark rows and of the production config (21c),
+and its refusals (21d). run, run_mmf, crm_phys_step_hostchunked and the
+benchmark route replay the compiled step, so phases 13, 18 and 20 run it
+(their lines say "compiled"); crm_phys_step stays the eager step, which
+phases 4-12, 15-17 and 19 run.
 The golden phases (4, 7, 12, 13, 14a, 15a, 16a) pin the Thomas
 recurrence, the route their files were written with; the other phases
 take the default route.
@@ -641,7 +652,7 @@ def full_width(setup_supercell_mmf, gcm_forcing, counters, nens, dtype,
     for obj, attr in counters.values():
         setattr(obj, attr, 0)
     state, ms, wall = run_steps(drv, state, nsteps)
-    counts = {k: getattr(obj, attr) for k, (obj, attr) in counters.items()}
+    counts = read_counts(counters)
     tag = f"nens {nens} {name_of(dtype)}"
     wmax = healthy(state, tag, water)
     steady = ms[1:]
@@ -666,13 +677,22 @@ def records(cfg):
     return n
 
 
+def read_counts(counters):
+    """Each counter as an int: the compiled step adds its replays' launch
+    and trip counts as device tensors, read here."""
+    return {k: int(getattr(obj, attr)) for k, (obj, attr) in counters.items()}
+
+
 @contextlib.contextmanager
-def timed_chunk_steps(mmf):
-    """MmfDriver._crm_phys_step_single timed with CUDA events while the
-    block runs: yields the list of (start, end) events, one pair a driver
-    step (a chunk's step where the state is chunked)."""
+def timed_chunk_steps():
+    """The compiled chunk step that MmfDriver.run replays
+    (ops/graph.py::GraphedFunction.__call__, the eager step under
+    eager_route) timed with CUDA events while the block runs: yields the
+    list of (start, end) events, one pair a driver step (a chunk's step
+    where the state is chunked); the first includes the capture."""
+    from pam_tpu_torch.ops import graph
     ms = []
-    step = mmf.MmfDriver._crm_phys_step_single
+    step = graph.GraphedFunction.__call__
 
     def timed_step(self, state):
         start = torch.cuda.Event(enable_timing=True)
@@ -682,11 +702,25 @@ def timed_chunk_steps(mmf):
         end.record()
         ms.append((start, end))
         return out
-    mmf.MmfDriver._crm_phys_step_single = timed_step
+    graph.GraphedFunction.__call__ = timed_step
     try:
         yield ms
     finally:
-        mmf.MmfDriver._crm_phys_step_single = step
+        graph.GraphedFunction.__call__ = step
+
+
+@contextlib.contextmanager
+def eager_route():
+    """The compiled step's calls made by the eager step while the block
+    runs, so run and run_mmf launch every kernel from Python (the route
+    before the compiled step, kept for phase 21c's comparison)."""
+    from pam_tpu_torch.ops import graph
+    call = graph.GraphedFunction.__call__
+    graph.GraphedFunction.__call__ = lambda self, state: self.fn(state)
+    try:
+        yield
+    finally:
+        graph.GraphedFunction.__call__ = call
 
 
 def crm_step_ms(ms, n_chunks):
@@ -696,11 +730,13 @@ def crm_step_ms(ms, n_chunks):
             for i in range(0, len(ms), n_chunks)]
 
 
-def run_config(standalone, mmf, counters, name, tmp, **changes):
+def run_config(standalone, mmf, counters, name, tmp, eager=False,
+               **changes):
     """configs/input_mmf_<name>.yaml through run_mmf on the card as the
     file sets it, updated by ``changes`` (out_prefix in tmp; the
     production file writes no output, out_freq -1, and here writes at t=0
-    and at its end), with every counter set to 0 just before; checks the
+    and at its end), on the compiled route (on the eager one with
+    ``eager``), with every counter set to 0 just before; checks the
     state, the launch counts (once a chunk where the file sets an
     ens_chunk) and the NetCDF file, which holds the full ensemble; returns
     (printable summary, counts, {"mean", "median": ms a CRM step, "peak":
@@ -719,18 +755,20 @@ def run_config(standalone, mmf, counters, name, tmp, **changes):
     torch.cuda.reset_peak_memory_stats()
     for obj, attr in counters.values():
         setattr(obj, attr, 0)
-    with timed_chunk_steps(mmf) as ms:
+    with (eager_route() if eager else contextlib.nullcontext()), \
+            timed_chunk_steps() as ms:
         t0 = time.perf_counter()
         state = standalone.run_mmf(cfg, verbose=False, device="cuda")
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    counts = {k: getattr(obj, attr) for k, (obj, attr) in counters.items()}
+    counts = read_counts(counters)
     f64 = cfg.get("f64", True)
     dycore = cfg.get("dycore", "awfl")
     p3 = cfg.get("micro") == "p3"
     tag = (f"{name} nens {cfg['nens']}"
            + (f" as {n_chunks} chunks of {chunk}" if n_chunks > 1 else "")
-           + f" {'f64' if f64 else 'f32'} {dycore}")
+           + f" {'f64' if f64 else 'f32'} {dycore}"
+           + (" eager" if eager else " compiled"))
     nsteps = int(np.ceil(cfg["sim_time"] / cfg["dt_gcm"])) * int(
         round(cfg["dt_gcm"] / cfg["dt_crm_phys"]))
     check(len(ms) == nsteps * n_chunks,
@@ -1588,7 +1626,7 @@ BENCH_SINGLE = dict(single=("kessler", "none"), nens=128, steps=10, reps=1,
 BENCH_ROWS = dict(steps=1, reps=1, trace_steps=1, awfl_steps=1)
 BENCH_KEYS = {"metric", "value", "unit", "config", "ms_per_step",
               "ms_per_step_median", "reps", "device_ms_per_step",
-              "first_step_s", "peak_mib", "chip"}
+              "first_step_s", "peak_mib", "chip", "capture_s"}
 SCALING_MESHES = ((1, 1), (1, 2))
 SCALING_STEPS = 2
 
@@ -1608,14 +1646,25 @@ def bench_lines(bench, settings, smi_line):
         check(set(r) == BENCH_KEYS, f"phase 18: keys {sorted(r)}")
         check(r["chip"] == smi_line, f"phase 18: chip {r['chip']!r} is not "
               f"nvidia-smi's {smi_line!r}")
+        # device ms may be null only on the AWFL row, whose graph runs the
+        # sub-cycles in a WHILE body that CUPTI's trace can leave out (the
+        # route then says so rather than summing a part of the step)
+        dev = r["device_ms_per_step"]
         check(r["config"] == row.config and r["unit"] == "gridpoint-steps/s"
               and r["value"] > 0 and r["ms_per_step"] > 0
               and r["reps"] == settings.reps and r["peak_mib"] > 0
-              and r["device_ms_per_step"] > 0 and r["first_step_s"] > 0,
-              f"phase 18: {r}")
+              and (dev > 0 if dev is not None else row.dycore == "awfl")
+              and r["first_step_s"] > 0, f"phase 18: {r}")
     check(recs[-1]["config"] == "micro=kessler,sgs=none,dycore=spam",
           f"phase 18: the last line is {recs[-1]['config']}")
     return recs, secs
+
+
+def dev_ms(rec) -> str:
+    """A bench record's device ms a step, or why it has none."""
+    d = rec["device_ms_per_step"]
+    return "not measured (the trace left out kernels)" if d is None \
+        else f"{d:.3f}"
 
 
 def phase_18(smi_line, counters, counts_17c):
@@ -1631,7 +1680,7 @@ def phase_18(smi_line, counters, counts_17c):
             setattr(obj, attr, 0)
 
     def read():
-        return {k: getattr(obj, attr) for k, (obj, attr) in counters.items()}
+        return read_counts(counters)
 
     s = bench.Settings(**BENCH_SINGLE)
     zero()
@@ -1674,11 +1723,12 @@ def phase_18(smi_line, counters, counts_17c):
           rows_18b["sub_cycles"] * FLUX_CALLS_PER_CYCLE,
           f"phase 18b: {rows_18b} ({spam} SPAM chunk steps, {p3} P3 "
           "chunk steps)")
-    print("phase 18b python -m pam_tpu_torch.bench, the default rows at "
+    print("phase 18b python -m pam_tpu_torch.bench, the default rows on "
+          "the compiled route (first step: the capture's) at "
           f"STEPS {s.steps} REPS {s.reps} TRACE_STEPS {s.trace_steps} "
           f"AWFL_STEPS {s.awfl_steps}: " + "; ".join(
               f"{r['config']} {r['ms_per_step']:.3f} ms/step (device "
-              f"{r['device_ms_per_step']:.3f}, peak {r['peak_mib']:.1f} MiB, "
+              f"{dev_ms(r)}, peak {r['peak_mib']:.1f} MiB, "
               f"first step {r['first_step_s']:.2f} s)" for r in recs) +
           f"; launches {rows_18b}; {secs:.1f} s", flush=True)
 
@@ -1706,7 +1756,7 @@ def phase_18(smi_line, counters, counts_17c):
               f"{m['collectives_per_step']} (17c's), bytes/step "
               f"{m['bytes_per_step']}" for m in meshes) + f"; {secs:.1f} s",
           flush=True)
-    return rows_18b, [r for r in by_row if r[0].chunk]
+    return rows_18b, [r for r in by_row if r[0].chunk], recs
 
 
 # phase 19: the tridiagonal solves (pam_tpu_torch/ops/tridiag.py) and the
@@ -1908,8 +1958,7 @@ def phase_19b(setup_supercell_mmf, state_from_numpy, counters):
         finally:
             for (m, n, _), fn in zip(wrapped, saved):
                 setattr(m, n, fn)
-        counts = {k: getattr(obj, attr) for k, (obj, attr)
-                  in counters.items()}
+        counts = read_counts(counters)
         p3 = "micro" in START_STATES[name]
         # 3 SI solves a step, and SHOC's two
         check(taken == {"pcr": nsteps * (5 if p3 else 3), "thomas": 0}
@@ -1922,20 +1971,23 @@ def phase_19b(setup_supercell_mmf, state_from_numpy, counters):
 
 def phase_19c(counters, route):
     """The benchmark route's Kessler (the line of record) and P3+SHOC rows
-    at nens 128 f32 on both routes in turns (ROUTE_ORDER, ROUTE_STEPS steps
-    a rep), then a trace of ROUTE_TRACE_STEPS steps on each; every count at
-    0 just before a row, read just after. Returns {row: ({route: (best ms,
-    median ms, device ms, launches) a step}, counts, steps)}."""
+    at nens 128 f32, its compiled step (a graph a route, each captured by
+    one untimed step), on both routes in turns (ROUTE_ORDER, ROUTE_STEPS
+    steps a rep), then a trace of ROUTE_TRACE_STEPS steps on each; every
+    count at 0 just before a row, read just after. Returns {row: ({route:
+    (best ms, median ms, device ms, launches) a step}, counts, steps)}."""
     from torch.profiler import ProfilerActivity, profile
     from pam_tpu_torch import bench
-    from pam_tpu_torch.profile_step import analyse, timed_steps
+    from pam_tpu_torch.profile_step import device_totals, timed_steps
     out = {}
     for micro, sgs in (("kessler", "none"), ("p3", "shoc")):
         drv, state = bench.setup_config(micro, sgs, 128)
-        step = drv.crm_phys_step
+        step = drv._graphed_single()
         for obj, attr in counters.values():
             setattr(obj, attr, 0)
         state, _ = timed_steps(step, state, 1 + bench.WARMUP)
+        with route("thomas"):
+            state = step(state)
         ms = {"thomas": [], "pcr": []}
         for mode in ROUTE_ORDER:
             with route(mode):
@@ -1948,14 +2000,13 @@ def phase_19c(counters, route):
                 for _ in range(ROUTE_TRACE_STEPS):
                     state = step(state)
                 torch.cuda.synchronize()
-            r = analyse(prof.events(), ROUTE_TRACE_STEPS)
-            rec[mode] = (min(ms[mode]), float(np.median(ms[mode])),
-                         r["device_ms_per_step"], r["kernels_per_step"])
+            launches, dev_ms = device_totals(prof, ROUTE_TRACE_STEPS)
+            rec[mode] = (min(ms[mode]), float(np.median(ms[mode])), dev_ms,
+                         launches)
         healthy(state, f"phase 19c {micro}",
                 P3_WATER if micro == "p3" else WATER)
-        counts = {k: getattr(obj, attr) for k, (obj, attr)
-                  in counters.items()}
-        nsteps = (1 + bench.WARMUP + len(ROUTE_ORDER) * ROUTE_STEPS
+        counts = read_counts(counters)
+        nsteps = (2 + bench.WARMUP + len(ROUTE_ORDER) * ROUTE_STEPS
                   + 2 * ROUTE_TRACE_STEPS)
         check(counts["weno_x"] == nsteps * WENO_CALLS_PER_STEP
               and counts["p3_part2"] == (nsteps if micro == "p3" else 0),
@@ -2034,7 +2085,8 @@ def phase_19(setup_supercell_mmf, state_from_numpy, gcm_forcing, standalone,
     rows = phase_19c(counters, route)
     secs.append(time.perf_counter() - t0 - sum(secs))
     for row, (rec, counts, nsteps) in rows.items():
-        print(f"phase 19c bench row {row} nens 128 f32, {len(ROUTE_ORDER)} "
+        print(f"phase 19c bench row {row} nens 128 f32, compiled, "
+              f"{len(ROUTE_ORDER)} "
               f"reps of {ROUTE_STEPS} steps in turns "
               f"{'/'.join(ROUTE_ORDER)}, ms a step best / median, device ms "
               f"a step, launches a step ({ROUTE_TRACE_STEPS} traced): " +
@@ -2078,6 +2130,389 @@ MB_TOL = 1e-9
 MB_MEM_CASES = ((4096, None), (4096, 1024), (8192, 1024))
 MB_MEM_STEPS = 4
 
+# phase 21: the compiled CRM step (MmfDriver._graphed_single: the step
+# captured into one CUDA graph, ops/graph.py, its Kessler, P3
+# sedimentation and AWFL loops decided on the device by CUDA WHILE nodes,
+# csrc/graph_while.cu). 21a the three stacks at 65x1x50, nens 128 f32 and
+# nens 8 f64, GRAPH_STEPS compiled steps against as many eager steps from
+# setup_supercell_mmf's start state, bit for bit, with the same trip counts
+# a step; a rainy Kessler state (rainsplit > 1); the PCR goldens through
+# the compiled step. 21b the replays of 21a's nens 128 runs under
+# set_sync_debug_mode("error"), the host launches of a compiled step and
+# an eager step's synchronising calls (sync debug "warn") and device
+# launches. 21c the benchmark route's rows on the eager route beside 18b's
+# compiled records, and the production config through run_mmf on the
+# eager route beside phase 13's compiled run. 21d the refusals: a host
+# read in capture, a second shape, an earlier result after the next call,
+# AWFL's range check on the device.
+GRAPH_STACKS = (("Kessler", dict(micro="kessler")),
+                ("P3+SHOC", dict(micro="p3", sgs="shoc")),
+                ("AWFL+Kessler", dict(dycore="awfl", micro="kessler")))
+GRAPH_CASES = ((128, torch.float32), (8, torch.float64))
+GRAPH_STEPS = 10
+# the rainy Kessler state: kg/kg of dry density in levels 25-44 of x
+# columns 30-35 of every member (phase 20a's heaviest chunk)
+GRAPH_RAIN = 3e-2
+# 21c: the production config's eager run cut to one GCM step of 4 CRM
+# steps (its file's 900 s GCM step is 45), the first a warmup, as 20b's
+GRAPH_EAGER_GCM_S = 80.0
+# 21b: each counted kernel's name in a trace (csrc/*.cu)
+GRAPH_KERNELS = {"weno_x": "weno_x_kernel", "p3_part2": "p3_part2_kernel",
+                 "awfl_flux": "awfl_flux_kernel"}
+# the runtime calls that a host makes to launch work on the card
+HOST_LAUNCHES = ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                 "cudaGraphLaunch", "cudaMemcpyAsync", "cudaMemsetAsync",
+                 "cuLaunchKernel", "cuLaunchKernelEx")
+
+
+def trips():
+    """(Kessler's last rainsplit, AWFL sub-cycles, P3 sedimentation
+    rounds) since zero_trips, as ints."""
+    from pam_tpu_torch.dycore.awfl import AwflDycore
+    from pam_tpu_torch.physics import kessler
+    from pam_tpu_torch.physics.p3 import sedimentation
+    return (int(kessler.kessler_column.rainsplit),
+            int(AwflDycore.timestep.cycles),
+            int(sedimentation.combined_sedimentation.rounds))
+
+
+def zero_trips():
+    from pam_tpu_torch.dycore.awfl import AwflDycore
+    from pam_tpu_torch.physics import kessler
+    from pam_tpu_torch.physics.p3 import sedimentation
+    kessler.kessler_column.rainsplit = 0
+    AwflDycore.timestep.cycles = 0
+    sedimentation.combined_sedimentation.rounds = 0
+
+
+def both_routes(drv, state, nsteps, tag):
+    """nsteps eager and nsteps compiled steps from ``state``, in turns;
+    fails on any difference, per field with the step it first appeared
+    in, its size and the trip counts of that step on both routes.
+    Returns (eager trip counts a step, the compiled step, the compiled
+    state, its capture s)."""
+    step = drv._graphed_single()
+    eager = compiled = state
+    counts, first = [], {}
+    for i in range(nsteps):
+        zero_trips()
+        eager = drv._crm_phys_step_single(eager)
+        want = trips()
+        zero_trips()
+        compiled = step(compiled)
+        got = trips()
+        counts.append(want)
+        for k in eager:
+            if k not in first and not torch.equal(eager[k], compiled[k]):
+                first[k] = (i + 1, float((eager[k].double()
+                                          - compiled[k].double()).abs()
+                                         .max()), want, got)
+        check(got == want, f"{tag}: step {i + 1} trip counts (rainsplit, "
+              f"sub-cycles, rounds) eager {want}, compiled {got}")
+    step.check()
+    check(not first, f"{tag}: the compiled step differs from the eager " +
+          "; ".join(f"{k} from step {n} by {d:.3e} (trip counts eager {w}, "
+                    f"compiled {g})" for k, (n, d, w, g) in first.items()))
+    capture = sum(g.capture_s for g in step.graphs.values())
+    return counts, step, compiled, capture
+
+
+def launch_profile(fn, state, nsteps):
+    """(state, device launches a step, host launch calls a step, {kernel:
+    its launches in the trace, by name}) of a torch.profiler trace of
+    nsteps steps of fn, counted on the trace's raw events (the device
+    launches as profile_step.py::device_totals counts them)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from pam_tpu_torch.profile_step import device_totals, own_launches
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(nsteps):
+            state = fn(state)
+        torch.cuda.synchronize()
+    host = sum(e.device_type() != DeviceType.CUDA and e.name() in HOST_LAUNCHES
+               for e in prof.profiler.kineto_results.events())
+    own = own_launches(prof)
+    named = {k: own[name] for k, name in GRAPH_KERNELS.items()}
+    return state, device_totals(prof, nsteps)[0], host / nsteps, named
+
+
+def memory_split(drv, state):
+    """MiB allocated on the card above what was allocated before, from
+    ``state``: the state itself, the peak of an eager step, the peak of
+    the compiled step's first call (its warm-up step, the capture and a
+    replay), what stays allocated after that call (the graph's static
+    inputs and outputs and the returned state), the peak of a replay, and
+    the growth of the reserved memory over the first call (the graph's
+    private pool, the warm-up stream's cache)."""
+    mib = 2 ** 20
+    gc_cuda()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    out = {"state": state_mib(state)}
+    torch.cuda.reset_peak_memory_stats()
+    drv._crm_phys_step_single(state)
+    torch.cuda.synchronize()
+    out["eager"] = (torch.cuda.max_memory_allocated() - base) / mib
+    gc_cuda()
+    reserved = torch.cuda.memory_reserved()
+    torch.cuda.reset_peak_memory_stats()
+    step = drv._graphed_single()
+    new = step(state)
+    torch.cuda.synchronize()
+    out["first"] = (torch.cuda.max_memory_allocated() - base) / mib
+    out["held"] = (torch.cuda.memory_allocated() - base) / mib
+    torch.cuda.reset_peak_memory_stats()
+    new = step(new)
+    torch.cuda.synchronize()
+    out["replay"] = (torch.cuda.max_memory_allocated() - base) / mib
+    out["reserved"] = (torch.cuda.memory_reserved() - reserved) / mib
+    del new
+    return out
+
+
+def eager_syncs(fn, state):
+    """(state, the synchronising calls that set_sync_debug_mode("warn")
+    flags in one step of fn)."""
+    import warnings
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            state = fn(state)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return state, sum("ynchroniz" in str(w.message) for w in seen)
+
+
+def phase_21a(mmf, gcm_forcing, state_from_numpy, counters):
+    """21a and 21b: prints a line a case."""
+    from pam_tpu_torch.ops import tridiag
+    from torch_jax_refs import PCR_TRAJECTORIES
+    rainy = None
+    for name, kw in GRAPH_STACKS:
+        for nens, dtype in GRAPH_CASES:
+            tag = f"phase 21a {name} nens {nens} {name_of(dtype)}"
+            drv, st = mmf.setup_supercell_mmf(
+                nens=nens, dtype=dtype, device="cuda",
+                **{**FULL, "micro": "kessler", **kw})
+            st = gcm_forcing.compute_gcm_forcing_tendencies(
+                drv.coupler, st, drv.dt_gcm)
+            if rainy is None:
+                rainy = drv, dict(st)
+            # what the graph adds to the peak (its capture below)
+            mem = memory_split(drv, st) if nens == 128 else None
+            counts, step, state, cap = both_routes(drv, st, GRAPH_STEPS, tag)
+            healthy(state, tag, P3_WATER if "sgs" in kw else WATER)
+            line = (f"{tag}: {GRAPH_STEPS} compiled steps equal "
+                    f"{GRAPH_STEPS} eager steps bit for bit; trip counts a "
+                    "step (rainsplit, AWFL sub-cycles, sedimentation "
+                    f"rounds) {counts[0]} .. {counts[-1]} on both; capture "
+                    f"{cap:.2f} s")
+            if nens == 128:
+                # 21b: the replays make no synchronising call
+                torch.cuda.synchronize()
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    for _ in range(GRAPH_STEPS):
+                        state = step(state)
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+                step.check()
+                # the kernels' counts over two replays, which Graphed
+                # adds from its capture, against the kernels the card ran:
+                # B1 and B4, outside the loops, in the trace of the
+                # replays; B3, in AWFL's WHILE body, which that trace can
+                # leave out, in the trace of two eager steps from the same
+                # state (the same trips: 21a holds both routes bit for bit)
+                for obj, attr in counters.values():
+                    setattr(obj, attr, 0)
+                start = state
+                state, _, host, traced = launch_profile(step, start, 2)
+                counted = read_counts(counters)
+                for obj, attr in counters.values():
+                    setattr(obj, attr, 0)
+                _, dev, _, eager = launch_profile(drv._crm_phys_step_single,
+                                                  start, 2)
+                counted_eager = read_counts(counters)
+                del start
+                check(sum(eager.values()) > 0 and counted == counted_eager
+                      and all(counted[k] == n for k, n in eager.items())
+                      and all(counted[k] == traced[k]
+                              for k in ("weno_x", "p3_part2")),
+                      f"{tag}: kernel launches of 2 steps counted compiled "
+                      f"{counted}, eager {counted_eager}; in the trace of "
+                      f"the replays {traced}, of the eager steps {eager}")
+                state, syncs = eager_syncs(drv._crm_phys_step_single, state)
+                check(1 <= host < 100 and dev > 1000,
+                      f"{tag}: {host} host launch calls a compiled step, "
+                      f"{dev} device launches an eager step")
+                line += (f"; 21b {GRAPH_STEPS} replays under "
+                         "set_sync_debug_mode('error'): 0 synchronising "
+                         f"calls a step, {host:.0f} host launch calls a "
+                         f"compiled step (replay and copies) against {dev:.0f}"
+                         f" device launches and {syncs} synchronising calls "
+                         "(sync debug 'warn') an eager step; kernel "
+                         "launches of 2 steps, compiled counted = eager "
+                         "counted = eager traced: " + ", ".join(
+                             f"{k} {n}" for k, n in eager.items())
+                         + "; in the trace of the replays: " + ", ".join(
+                             f"{k} {n}" for k, n in traced.items())
+                         + "; MiB above the start: the state "
+                         f"{mem['state']:.1f}, an eager step's peak "
+                         f"{mem['eager']:.1f}, the first compiled call's "
+                         f"(warm-up, capture, replay) {mem['first']:.1f}, "
+                         f"held after it {mem['held']:.1f}, a replay's peak "
+                         f"{mem['replay']:.1f}, reserved +"
+                         f"{mem['reserved']:.1f}")
+            print(line, flush=True)
+            del drv, st, step, state
+            gc_cuda()
+    # a rainy Kessler state (the first case's driver and start state): the
+    # sub-cycle loop runs more than one trip
+    drv, st = rainy
+    pr = torch.zeros_like(st["precip_liquid"])
+    pr[:, 25:45, :, 30:36] = GRAPH_RAIN * st["density_dry"][:, 25:45, :,
+                                                            30:36]
+    st["precip_liquid"] = pr
+    tag = "phase 21a rainy Kessler nens 128 f32"
+    counts, _, state, _ = both_routes(drv, st, GRAPH_STEPS, tag)
+    splits = [c[0] for c in counts]
+    check(max(splits) > 1, f"{tag}: rainsplit {splits}")
+    healthy(state, tag)
+    print(f"{tag}: {GRAPH_STEPS} compiled steps equal the eager steps bit "
+          f"for bit; rainsplit a step {splits} on both", flush=True)
+    del drv, st, state, rainy
+    # the PCR goldens through the compiled step, as phase 19b the eager
+    check(tridiag._TRIDIAG_MODE == "auto", "phase 21a: PAM_TRIDIAG is "
+          f"{tridiag._TRIDIAG_MODE!r}, not the default")
+    errs = {}
+    for name, nsteps, _, stem in PCR_TRAJECTORIES:
+        drv, _ = mmf.setup_supercell_mmf(**{**GOLDEN_KW, **START_STATES[name]},
+                                         dycore="spam", dtype=torch.float64,
+                                         device="cuda")
+        state = state_from_numpy(dict(np.load(os.path.join(
+            GOLDEN, f"{name}_init.npz"))), "cuda", torch.float64)
+        step = drv._graphed_single()
+        for _ in range(nsteps):
+            state = step(state)
+        step.check()
+        errs[stem] = max(golden_errors(state, stem, {}).values())
+    print("phase 21a the PCR goldens through the compiled step, f64, 16x1x12 "
+          "nens 2: max rel err " + ", ".join(f"{k} {e:.2e}"
+                                             for k, e in errs.items()),
+          flush=True)
+    gc_cuda()
+
+
+def phase_21c(standalone, mmf, counters, smi_line, bench_recs, production):
+    """21c: the benchmark rows on the eager route at 18b's settings beside
+    18b's compiled records; the production config through run_mmf on the
+    eager route (one GCM step) beside phase 13's compiled run."""
+    import io
+    from pam_tpu_torch import bench
+    gc_cuda()
+    with eager_route():
+        eager = bench.run(bench.Settings(**BENCH_ROWS), out=io.StringIO())
+    for g, e in zip(bench_recs, eager):
+        # a record of the eager route captured no graph
+        check(g["config"] == e["config"] and e["capture_s"] is None
+              and g["capture_s"] > 0, f"phase 21c: {g} / {e}")
+        print(f"phase 21c bench row {g['config']} at 18b's settings, "
+              "compiled (18b) / eager: ms a step "
+              f"{g['ms_per_step']:.2f} / {e['ms_per_step']:.2f}, device ms "
+              f"{dev_ms(g)} / {dev_ms(e)}"
+              f", peak {g['peak_mib']:.1f} / {e['peak_mib']:.1f} MiB, first "
+              f"step {g['first_step_s']:.2f} / {e['first_step_s']:.2f} s, "
+              f"capture {g['capture_s']:.2f} s; {smi_line}", flush=True)
+    gc_cuda()
+    with tempfile.TemporaryDirectory() as tmp, thomas_route():
+        line, _, stats = run_config(standalone, mmf, counters, "production",
+                                    tmp, eager=True,
+                                    dt_gcm=GRAPH_EAGER_GCM_S,
+                                    sim_time=GRAPH_EAGER_GCM_S)
+    print("phase 21c configs/input_mmf_production.yaml through run_mmf on "
+          "the Thomas route as phase 13, compiled (phase 13, 2 GCM steps of "
+          "45 CRM steps) / eager (1 GCM step of "
+          f"{GRAPH_EAGER_GCM_S:g} s): mean ms a step "
+          f"{production[1]['mean']:.2f} / "
+          f"{stats['mean']:.2f}, median {production[1]['median']:.2f} / "
+          f"{stats['median']:.2f}, peak {production[1]['peak']:.1f} / "
+          f"{stats['peak']:.1f} MiB ({line}); {smi_line}", flush=True)
+    gc_cuda()
+
+
+def phase_21d(mmf, gcm_forcing):
+    """21d: the compiled step's refusals, SPAM+SI Kessler and AWFL+Kessler
+    at 16x1x12 nens 2, f64."""
+    from pam_tpu_torch.ops import graph
+    kw = dict(GOLDEN_KW, dtype=torch.float64, device="cuda")
+    drv, st = mmf.setup_supercell_mmf(**kw, dycore="spam")
+    st = gcm_forcing.compute_gcm_forcing_tendencies(drv.coupler, st,
+                                                    drv.dt_gcm)
+
+    def reads(state):
+        out = drv._crm_phys_step_single(state)
+        float(out["temp"].max())
+        return out
+    named = None
+    try:
+        graph.GraphedFunction(reads)(st)
+    except graph.CaptureError as e:
+        named = str(e)
+    check(named is not None and "Tensor.__float__" in named
+          and "chip_smoke.py" in named,
+          f"phase 21d: a host read in capture gave {named!r}")
+    step = drv._graphed_single()
+    first = step(st)
+    kept = {k: v.clone() for k, v in first.items()}
+    second = step(first)
+    check(mb_same(first, kept) and not mb_same(first, second),
+          "phase 21d: the next call changed an earlier result")
+    half = {k: v[:1].clone() for k, v in st.items()}
+    got = step(half)
+    check(len(step.graphs) == 2
+          and mb_same(got, drv._crm_phys_step_single(half))
+          and mb_same(second, drv._crm_phys_step_single(
+              drv._crm_phys_step_single(st))),
+          f"phase 21d: {len(step.graphs)} graphs for two shapes")
+    adrv, ast = mmf.setup_supercell_mmf(**kw, dycore="awfl")
+    ast = gcm_forcing.compute_gcm_forcing_tendencies(adrv.coupler, ast,
+                                                     adrv.dt_gcm)
+    bad = dict(ast, temp=ast["temp"] * float("nan"))
+    astep = adrv._graphed_single()
+    astep(ast)       # captured on a sound state, then replayed on NaNs
+    msgs = []
+    for route in ("eager", "compiled"):
+        try:
+            if route == "eager":
+                adrv._crm_phys_step_single(bad)
+            else:
+                astep(bad)
+                astep.check()
+        except FloatingPointError as e:
+            msgs.append(str(e))
+    check(len(msgs) == 2 and msgs[0] == msgs[1],
+          f"phase 21d: AWFL's range check {msgs}")
+    print(f"phase 21d refusals: a host read in capture raises ({named[:160]}"
+          "...); a second shape captures a second graph; an earlier result "
+          "survives the next call; AWFL's range check read after the "
+          f"replay raises as the eager step does ({msgs[1]})", flush=True)
+
+
+def phase_21(mmf, gcm_forcing, state_from_numpy, standalone, counters,
+             smi_line, bench_recs, production):
+    t0 = time.perf_counter()
+    phase_21a(mmf, gcm_forcing, state_from_numpy, counters)
+    secs = [time.perf_counter() - t0]
+    phase_21c(standalone, mmf, counters, smi_line, bench_recs, production)
+    secs.append(time.perf_counter() - t0 - secs[0])
+    phase_21d(mmf, gcm_forcing)
+    print(f"phase 21 {time.perf_counter() - t0:.1f} s (21a-b {secs[0]:.1f}, "
+          f"21c {secs[1]:.1f})", flush=True)
+
 
 def mb_err(k, ref, got, dt_gcm):
     """Max |got - ref| over the field's largest |value|; a forcing
@@ -2120,8 +2555,7 @@ def phase_20a(mmf, gcm_forcing, counters):
         for obj, attr in counters.values():
             setattr(obj, attr, 0)
         auto = drv.crm_phys_step(st)
-        counts = {k: getattr(obj, attr) for k, (obj, attr)
-                  in counters.items()}
+        counts = read_counts(counters)
         check(counts["weno_x"] == WENO_CALLS_PER_STEP * n
               and counts["p3_part2"] == (n if micro == "p3" else 0),
               f"phase 20a {name}: one chunked step launched {counts}")
@@ -2133,7 +2567,7 @@ def phase_20a(mmf, gcm_forcing, counters):
         alone, rainsplit = [], []
         for c in chunks:
             alone.append(drv.crm_phys_step(c))
-            rainsplit.append(kessler.kessler_column.rainsplit)
+            rainsplit.append(int(kessler.kessler_column.rainsplit))
         alone = mmf._join_ens(alone)
         check(mb_same(auto, alone) and all(mb_same(r, alone)
                                            for r in routes.values()),
@@ -2148,7 +2582,7 @@ def phase_20a(mmf, gcm_forcing, counters):
               f"phase 20a {name}: run's modes are not the chunks run alone "
               "bit for bit")
         ref = whole.crm_phys_step(st)
-        whole_split = kessler.kessler_column.rainsplit
+        whole_split = int(kessler.kessler_column.rainsplit)
         healthy(ref, f"phase 20a {name}", WATER if micro == "kessler"
                 else P3_WATER)
         per_chunk = []
@@ -2218,7 +2652,7 @@ def phase_20b(standalone, mmf, counters):
         for obj, attr in counters.values():
             setattr(obj, attr, 0)
         t0 = time.perf_counter()
-        with timed_chunk_steps(mmf) as ev:
+        with timed_chunk_steps() as ev:
             st = standalone.run_mmf(cfg, verbose=False, device="cuda")
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
@@ -2226,8 +2660,8 @@ def phase_20b(standalone, mmf, counters):
         check(len(ev) == MB_MEM_STEPS * n,
               f"{tag}: {len(ev)} chunk steps, not {MB_MEM_STEPS} x {n}")
         ms = crm_step_ms(ev, n)
-        counts = {k: getattr(obj, attr) / MB_MEM_STEPS
-                  for k, (obj, attr) in counters.items()}
+        counts = {k: v / MB_MEM_STEPS
+                  for k, v in read_counts(counters).items()}
         check(counts["weno_x"] == WENO_CALLS_PER_STEP * n
               and counts["p3_part2"] == n, f"{tag}: {counts} a step")
         check(int(st["temp"].shape[0]) == nens, f"{tag}: nens of the state")
@@ -2256,8 +2690,7 @@ def phase_20c(counters, smi_line, chunked_rows):
             setattr(obj, attr, 0)
         got = bench.run_row(s, whole, smi_line)
         ways = {"chunked": (rec, launched),
-                "whole": (got, {k: getattr(obj, attr)
-                                for k, (obj, attr) in counters.items()})}
+                "whole": (got, read_counts(counters))}
         for way, (r, c) in ways.items():
             n = row.nens // (row.chunk if way == "chunked" else row.nens)
             c = {k: v / steps for k, v in c.items()}
@@ -2555,7 +2988,8 @@ def main():
                  "awfl_flux": b3_count, "sub_cycles": cycle_count}, name, tmp)
             if name == "production":
                 production = (line, stats)
-            print(f"phase 13 run_mmf {line}", flush=True)
+            print(f"phase 13 run_mmf on the compiled route {line}",
+                  flush=True)
 
     phase_14(standalone, weno_x, golden, gw_verification)
     launches_3d = phase_15(standalone, weno_x, golden,
@@ -2564,7 +2998,7 @@ def main():
     launches_16 = phase_16(standalone, weno_x, golden, setup_supercell_mmf)
     sharded = phase_17(standalone, weno, weno_x)
     pad32 = sharded["b1"][("float32", 32000, 65)]
-    bench_launches, chunked_rows = phase_18(
+    bench_launches, chunked_rows, bench_recs = phase_18(
         chip,
         {"weno_x": weno_count, "p3_part2": b4_count, "awfl_flux": b3_count,
          "sub_cycles": cycle_count}, sharded["counts_17c"])
@@ -2576,6 +3010,10 @@ def main():
         {"weno_x": weno_count, "p3_part2": b4_count,
          "awfl_flux": b3_count, "sub_cycles": cycle_count}, chip, production,
         chunked_rows)
+    phase_21(mmf, gcm_forcing, state_from_numpy, standalone,
+             {"weno_x": weno_count, "p3_part2": b4_count,
+              "awfl_flux": b3_count, "sub_cycles": cycle_count}, chip,
+             bench_recs, production)
 
     # the kernels' record: float32 times at the main path's shapes (B4
     # with cloud, rain and ice each at half of the points); no single

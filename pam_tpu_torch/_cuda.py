@@ -7,7 +7,8 @@ use, into ``_build/`` beside this file, under a name keyed on a hash of
 the source, of every header ``csrc/*.cuh`` (``csrc/weno5.cuh`` is the
 limiter that ``weno_x.cu`` and ``awfl_flux.cu`` include,
 ``csrc/p3_tables.cuh`` the table lookups of ``p3_part2.cu``) and of the
-flags: an edited source or header is rebuilt and an unchanged one is
+flags (``csrc/graph_while.cu`` is no kernel of the TPU's but the capture
+of a CUDA graph with WHILE nodes that ``ops/graph.py`` drives): an edited source or header is rebuilt and an unchanged one is
 reused. A missing ``nvcc`` or a failed compile raises with the compiler's
 output; nothing falls back to the plain versions.
 """
@@ -157,4 +158,12 @@ def library() -> types.SimpleNamespace:
         raise RuntimeError("csrc/awfl_flux.cu expects another argument, "
                            "table or tile layout than ops/awfl_flux.py "
                            "passes")
+    cdll = ctypes.CDLL(str(paths["graph_while.cu"]))
+    bind(cdll, "pam_capture_begin", [ptr, ptr])
+    bind(cdll, "pam_while_begin", [ptr, ptr, ptr, ptr, ptr])
+    bind(cdll, "pam_while_end", [ptr, ctypes.c_ulonglong, ptr, ptr, ptr])
+    bind(cdll, "pam_while_abort", [ptr, ptr, ptr])
+    bind(cdll, "pam_capture_end", [ptr, ptr, i32, ptr])
+    bind(cdll, "pam_graph_launch", [ptr, ptr])
+    bind(cdll, "pam_graph_destroy", [ptr])
     return lib

@@ -4,10 +4,13 @@ second) on one CUDA card, the port's counterpart of the repository's
 
 Builds the MMF configuration of inputs/input_pamc.yaml (65x1x50 cells
 per CRM, 128 km x 64 km x 20 km, dt_gcm 900 s, dt_crm_phys 20 s, f32),
-applies the GCM forcing tendencies once, and times
-``MmfDriver.crm_phys_step`` over the whole ensemble. By default it runs
-``bench.py``'s six rows, in its order, and prints each row's JSON line on
-stdout as soon as the row finishes:
+applies the GCM forcing tendencies once, and times the compiled CRM step,
+as ``bench.py`` times ``jax.jit(drv.crm_phys_step)`` and the compiled
+chunk step (bench.py:165, :181): ``MmfDriver._graphed_single``, the step
+captured into one CUDA graph whose Kessler, P3 sedimentation and AWFL
+loops run on the device (ops/graph.py). By default it runs ``bench.py``'s
+six rows, in its order, and prints each row's JSON line on stdout as soon
+as the row finishes:
 
   1. P3+SHOC on SPAM+SI at nens ``PAM_BENCH_NENS`` (128);
   2. P3+SHOC at ``PAM_BENCH_NENS_BIG`` (512);
@@ -21,10 +24,10 @@ Rows 2-4 run as ``bench.py`` runs them (bench.py:141-179): the driver is
 built at ``driver/mmf.py::pick_ens_chunk(65, 1, 50, f32, nens)``, 128
 members, the state at the row's ensemble (``state_only``) with its
 forcing tendencies computed once by the chunk driver's coupler, and the
-state is split once into chunks; a step runs every chunk through the
-chunk driver in turn (each with its own Kessler rainsplit count, so the
-trajectory is ``bench.py``'s), and the timing waits for the last chunk.
-Their config strings end in ``,nens=<n>,ens_chunk=<chunk>``.
+state is split once into chunks; a step replays the chunk driver's graph
+for every chunk in turn (each chunk with its own Kessler rainsplit count,
+so the trajectory is ``bench.py``'s), and the timing waits for the last
+chunk. Their config strings end in ``,nens=<n>,ens_chunk=<chunk>``.
 
 Setting any of ``PAM_BENCH_MICRO`` (kessler), ``PAM_BENCH_SGS`` (none)
 or ``PAM_BENCH_DYCORE`` (spam) runs that one configuration instead, in
@@ -40,17 +43,27 @@ the driver at it, chunked as above) and ``PAM_BENCH_KESSLER_CHUNK``
 meanings. There is no compilation cache.
 
 Each row: the first step (``first_step_s``, which includes building the
-CUDA kernels at their first use), 3 warmup steps, then ``reps`` runs of
-``steps`` steps, each timed with CUDA events around the whole run (the
-steps sync with the host inside: Kessler's rainsplit, P3's
-sedimentation rounds, AWFL's sub-cycle count). ``value`` derives from the
-best rep; ``device_ms_per_step`` is the device time of a
-``torch.profiler`` trace of ``trace_steps`` more steps, summed over the
-trace's device events as ``profile_step.py::analyse`` reads them (the
-csrc kernels, launched through ctypes, among them); ``peak_mib`` is
-``torch.cuda.max_memory_allocated`` over the row; ``chip`` the card's
-name and power limit from nvidia-smi. A non-finite final state exits 1.
-The spread of the reps goes to stderr with the other log lines.
+CUDA kernels at their first use and capturing the graph, as ``bench.py``'s
+first step includes compiling; ``capture_s`` is the capture alone: a
+warm-up step and the capture), 3 warmup steps, then ``reps`` runs of
+``steps`` steps, each timed with CUDA events around the whole run (a
+replayed step reads nothing on the host). ``value`` derives from the best
+rep; ``device_ms_per_step`` is the device time of a ``torch.profiler``
+trace of ``trace_steps`` more steps, summed over the trace's device
+events (``profile_step.py::device_totals``; CUPTI reports the kernels a
+graph replay launches, the csrc kernels among them, but can leave out
+those of a WHILE node's body: where the trace's launches of the csrc
+kernels differ from their counters the row's device ms is null and
+stderr says so);
+``peak_mib`` is ``torch.cuda.max_memory_allocated`` over the row;
+``chip`` the card's name and power limit from nvidia-smi; ``capture_s``
+null where nothing was captured (a CPU run). A non-finite final state
+exits 1. The spread of the reps goes to stderr with the other log lines.
+
+The eager step, which reads the trip counts on the host (Kessler's
+rainsplit, P3's sedimentation rounds, AWFL's sub-cycle count) and
+launches every kernel from Python, stays reachable through the API
+(``drv.crm_phys_step``) and ``profile_step``.
 
 The route runs on the card; ``PAM_BENCH_DEVICE=cpu`` or ``--device cpu``
 runs it on the CPU (for tests: the plain versions of the kernels, times
@@ -79,7 +92,8 @@ from torch.profiler import ProfilerActivity, profile
 
 from .driver.mmf import _split_ens, pick_ens_chunk, setup_supercell_mmf
 from .modules import gcm_forcing
-from .profile_step import analyse, cards, timed_steps
+from .ops import awfl_flux, p3_part2, weno_x
+from .profile_step import cards, device_totals, own_launches, timed_steps
 
 # inputs/input_pamc.yaml's CRM and bench.py's arguments (bench.py:142-148)
 GRID = dict(nx=65, ny=1, nz=50, xlen=128000.0, ylen=64000.0, zlen=20000.0,
@@ -200,14 +214,27 @@ def setup_config(micro: str, sgs: str, nens: int, dycore: str = "spam",
 
 def device_ms_per_step(step, state, nsteps: int):
     """Device ms a step of a torch.profiler trace of ``nsteps`` steps,
-    summed over the trace's device events (profile_step.py::analyse);
-    returns (state, ms)."""
+    summed over the trace's device events (profile_step.py::
+    device_totals); returns (state, ms). The ms is None, and says so on
+    stderr, where the trace's launches of the package's kernels differ
+    from their counters (CUPTI can leave out kernels that a graph runs in
+    a WHILE node's body: a sum without them is not the step's)."""
+    counters = {"weno_x_kernel": weno_x.weno_edges_x_cuda,
+                "p3_part2_kernel": p3_part2.p3_part2_cuda,
+                "awfl_flux_kernel": awfl_flux.flux_direction_cuda}
+    before = {k: int(f.launches) for k, f in counters.items()}
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(nsteps):
             state = step(state)
         torch.cuda.synchronize()
-    return state, analyse(prof.events(), nsteps)["device_ms_per_step"]
+    counted = {k: int(f.launches) - before[k] for k, f in counters.items()}
+    traced = own_launches(prof)
+    if traced != counted:
+        log(f"device ms not measured: the trace holds {traced} launches "
+            f"of the package's kernels, their counters {counted}")
+        return state, None
+    return state, device_totals(prof, nsteps)[1]
 
 
 def run_row(s: Settings, row: Row, chip: str) -> dict:
@@ -220,13 +247,17 @@ def run_row(s: Settings, row: Row, chip: str) -> dict:
         row.micro, row.sgs, row.nens, row.dycore, s.linsys, s.two_point,
         s.device, drv_nens,
         {"ens_chunk": s.kessler_chunk} if s.kessler_chunk else None)
+    # the compiled step; on the CPU the eager step
+    graphed = drv._graphed_single()
     if drv_nens != row.nens:
         # split once; a step runs every chunk through the chunk driver in
         # turn (bench.py:151-176)
         state = list(_split_ens(state, drv.n_chunks(state)))
-        step = drv.step_chunks
+
+        def step(chunks):
+            return drv.step_chunks(chunks, graphed)
     else:
-        step = drv.crm_phys_step
+        step = graphed
     t0 = time.perf_counter()
     state, _ = timed_steps(step, state, 1, cuda)
     first_s = time.perf_counter() - t0
@@ -238,6 +269,7 @@ def run_row(s: Settings, row: Row, chip: str) -> dict:
     for _ in range(s.reps):
         state, ms = timed_steps(step, state, row.steps, cuda)
         ms_reps.append(ms)
+    graphed.check()
     parts = state if drv_nens != row.nens else (state,)
     bad = sorted({k for part in parts for k, v in part.items()
                   if v.is_floating_point()
@@ -249,6 +281,8 @@ def run_row(s: Settings, row: Row, chip: str) -> dict:
     if cuda and s.trace_steps > 0:
         state, dev_ms = device_ms_per_step(step, state, s.trace_steps)
     peak = torch.cuda.max_memory_allocated() / 2**20 if cuda else None
+    captures = [g.capture_s for g in graphed.graphs.values()]
+    capture_s = sum(captures) if captures else None
     best, med = min(ms_reps), statistics.median(ms_reps)
     log(f"{tag} reps (ms/step) "
         f"{['%.3f' % m for m in ms_reps]} best {best:.3f} median {med:.3f} "
@@ -256,7 +290,9 @@ def run_row(s: Settings, row: Row, chip: str) -> dict:
         f"({100 * (max(ms_reps) / best - 1):.1f}% of best); device "
         f"{dev_ms if dev_ms is None else round(dev_ms, 3)} ms/step; peak "
         f"{peak if peak is None else round(peak, 1)} MiB")
-    del drv, state
+    # the driver and its graph (static inputs and outputs, private pool)
+    # go before the next row, whose peak would count them
+    del drv, state, step, graphed
     gc.collect()
     if cuda:
         torch.cuda.empty_cache()
@@ -273,6 +309,7 @@ def run_row(s: Settings, row: Row, chip: str) -> dict:
         "first_step_s": first_s,
         "peak_mib": peak,
         "chip": chip,
+        "capture_s": capture_s,
     }
 
 

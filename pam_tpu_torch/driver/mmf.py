@@ -3,12 +3,18 @@ pam_tpu/driver/mmf.py:29-407; ref standalone/mmf_simplified/
 driver.cpp:237-272 — per GCM step compute the forcing tendencies, then
 per CRM step apply forcing -> dycore -> sponge -> sgs -> micro).
 
-One CRM step is eager PyTorch over the driver's ensemble. A driver built
-at a chunk of the ensemble steps any exact multiple of it in chunks, as
-pam_tpu's does (ensemble micro-batching): ``crm_phys_step`` routes such a
-state through ``crm_phys_step_microbatched``, ``crm_phys_step_hostchunked``
-is the same from the host, and ``run`` in ``mb_mode`` "host" keeps the
-state chunked across the GCM loop. Each chunk is a dense copy of its
+One CRM step is eager PyTorch over the driver's ensemble
+(``crm_phys_step``, ``gcm_step``: pam_tpu's functions to jit). The compiled
+step, pam_tpu's ``_jitted_single``, is ``_graphed_single``: the step
+captured into one CUDA graph (ops/graph.py), its Kessler, P3
+sedimentation and AWFL loops decided on the device; ``run`` and
+``crm_phys_step_hostchunked`` replay it once a CRM step and once a chunk,
+as pam_tpu dispatches its compiled step. A driver built at a chunk of the
+ensemble steps any exact multiple of it in chunks, as pam_tpu's does
+(ensemble micro-batching): ``crm_phys_step`` routes such a state through
+``crm_phys_step_microbatched``, ``crm_phys_step_hostchunked`` is the same
+from the host, and ``run`` in ``mb_mode`` "host" keeps the state chunked
+across the GCM loop. Each chunk is a dense copy of its
 members, stepped by the chunk driver as a state of its own size; the only
 coupling across members in a step, Kessler's rainsplit minimum, becomes
 one per chunk (physics/kessler.py, ``KesslerMicro.ens_chunk``).
@@ -31,6 +37,7 @@ from ..dycore.awfl import AwflDycore
 from ..modules import gcm_forcing, sponge
 from ..modules.broadcast import broadcast_initial_gcm_column
 from ..modules.perturb import perturb_temperature
+from ..ops import graph, tridiag
 from ..physics import kessler, p3
 from ..physics.sgs import shoc
 from ..spam.dycore import SpamDycore
@@ -174,15 +181,17 @@ class MmfDriver:
         return _join_ens([gcm_forcing.compute_gcm_forcing_tendencies(
             self.coupler, c, self.dt_gcm) for c in _split_ens(state, n)])
 
-    def gcm_step(self, state):
+    def gcm_step(self, state, step: Callable = None):
         """One GCM step: forcing tendencies (unless apply_gcm_forcing is
-        false), then dt_gcm/dt_crm_phys CRM steps, each through
-        :meth:`crm_phys_step` (so in chunks for a multiple of the
-        driver's ensemble)."""
+        false), then dt_gcm/dt_crm_phys CRM steps, each through ``step``
+        (:meth:`crm_phys_step` by default, so in chunks for a multiple of
+        the driver's ensemble; :meth:`run` passes :meth:`_graphed_single`
+        for a driver-sized state)."""
+        step = step or self.crm_phys_step
         if self.apply_gcm_forcing:
             state = self._forcing(state)
         for _ in range(int(round(self.dt_gcm / self.dt_crm_phys))):
-            state = self.crm_phys_step(state)
+            state = step(state)
         return state
 
     def crm_phys_step_microbatched(self, state, n_chunks: int):
@@ -208,28 +217,59 @@ class MmfDriver:
         return _join_ens(self.step_chunks(list(_split_ens(state,
                                                            n_chunks))))
 
-    def step_chunks(self, chunks: list) -> list:
-        """Each chunk of the list stepped in turn, in place: a chunk's
-        input is let go as soon as its output is there, so the chunks
-        hold about one state between them."""
+    def step_chunks(self, chunks: list, step: Callable = None) -> list:
+        """Each chunk of the list stepped in turn by ``step`` (the eager
+        :meth:`_crm_phys_step_single` by default; :meth:`run` passes
+        :meth:`_graphed_single`), in place: a chunk's input is let go as
+        soon as its output is there, so the chunks hold about one state
+        between them."""
+        step = step or self._crm_phys_step_single
         for i in range(len(chunks)):
-            chunks[i] = self._crm_phys_step_single(chunks[i])
+            chunks[i] = step(chunks[i])
         return chunks
 
+    def _graphed_single(self) -> graph.GraphedFunction:
+        """The compiled chunk step (cached on the driver), the counterpart
+        of pam_tpu's ``_jitted_single`` (pam_tpu/driver/mmf.py:221-225):
+        :meth:`_crm_phys_step_single` captured into one CUDA graph for the
+        state's keys, shapes, dtypes and device and ``PAM_TRIDIAG``'s
+        route (a new key captures again), its loops decided on the device.
+        A call copies the state in, replays and returns fresh tensors; a
+        CPU state takes the eager step; a capture that fails raises. Its
+        ``check()`` raises a range check (AWFL's sub-cycle count) that
+        failed in a replay."""
+        if self.__dict__.get("_graph_single_cache") is None:
+            # the route of a card's solves: auto takes PCR there
+            self._graph_single_cache = graph.GraphedFunction(
+                self._crm_phys_step_single,
+                key=lambda: tridiag._TRIDIAG_MODE != "thomas")
+        return self._graph_single_cache
+
     def crm_phys_step_hostchunked(self, state):
-        """One CRM step of a multiple of the driver's ensemble, the
-        chunks stepped from the host (pam_tpu/driver/mmf.py:227-260). In
-        eager PyTorch every step is launched from the host, so this is
-        :meth:`crm_phys_step`'s automatic route."""
-        return self.crm_phys_step(state)
+        """One CRM step of a multiple of the driver's ensemble by host
+        dispatch (pam_tpu/driver/mmf.py:227-260): the compiled chunk step
+        (:meth:`_graphed_single`) is replayed once a chunk, one graph for
+        every chunk, the chunks split before and joined after. Bit for
+        bit :meth:`crm_phys_step`, which runs the same chunks eagerly.
+        Nothing here reads the device; ``_graphed_single().check()``
+        raises a range check that failed."""
+        n = self.n_chunks(state)
+        step = self._graphed_single()
+        if n == 1:
+            return step(state)
+        return _join_ens(self.step_chunks(list(_split_ens(state, n)), step))
 
     def run(self, state, sim_time: float, callback: Callable = None):
         """GCM loop over sim_time (driver.cpp:237-272); callback(state,
-        elapsed) after every GCM step. A state of several driver-sized
-        chunks runs as ``mb_mode`` says: "host" splits it once and runs
-        every chunk through each GCM step (forcing, then the CRM steps),
-        joining them for each callback and at the end; "unrolled" runs
-        :meth:`gcm_step` on the full state.
+        elapsed) after every GCM step. Every CRM step replays the compiled
+        step (:meth:`_graphed_single`), once a chunk, as pam_tpu's run
+        dispatches its compiled step; the forcing, once a GCM step, stays
+        eager. A state of several driver-sized chunks runs as ``mb_mode``
+        says: "host" splits it once and runs every chunk through each GCM
+        step (forcing, then the CRM steps), joining them for each callback
+        and at the end; "unrolled" runs the eager :meth:`gcm_step` on the
+        full state. The compiled step's range checks are read before each
+        callback and at the end.
 
         ``state`` may also be a list of driver-sized chunk states (what
         ``_split_ens`` gives), which "host" takes over: it steps them in
@@ -250,23 +290,29 @@ class MmfDriver:
                 state = _join_ens(state)
         elif self.mb_mode == "host" and self.n_chunks(state) > 1:
             state = list(_split_ens(state, self.n_chunks(state)))
+        step = self._graphed_single()
+        ncrm = int(round(self.dt_gcm / self.dt_crm_phys))
         if isinstance(state, list):
-            ncrm = int(round(self.dt_gcm / self.dt_crm_phys))
             for _ in range(nsteps_gcm):
                 if self.apply_gcm_forcing:
                     for i in range(len(state)):
                         state[i] = self._forcing(state[i])
                 for _ in range(ncrm):
-                    self.step_chunks(state)
+                    self.step_chunks(state, step)
                 etime += self.dt_gcm
                 if callback is not None:
+                    step.check()
                     callback(_join_ens(state), etime)
+            step.check()
             return _join_ens(state, consume=True)
+        whole = self.n_chunks(state) == 1
         for _ in range(nsteps_gcm):
-            state = self.gcm_step(state)
+            state = self.gcm_step(state, step if whole else None)
             etime += self.dt_gcm
             if callback is not None:
+                step.check()
                 callback(state, etime)
+        step.check()
         return state
 
 

@@ -194,7 +194,8 @@ def run_mmf(cfg: dict, verbose: bool = True, device="cuda"):
     state (``state_only``) at nens, and the writer describes the full
     ensemble (pam_tpu/driver/standalone.py:71-94). The state is handed
     to ``MmfDriver.run`` as a list of driver-sized chunks, which it takes
-    over."""
+    over; on the card ``run`` replays the compiled step
+    (``MmfDriver._graphed_single``) once a chunk and a CRM step."""
     from .mmf import _split_ens, setup_supercell_mmf
     from ..io.output import make_writer
 

@@ -33,7 +33,7 @@ import torch
 from torch.profiler import record_function
 
 from ..core.coupler import Coupler, hmean
-from ..ops import awfl_flux
+from ..ops import awfl_flux, graph
 from ..ops import recon_matrices as rm
 from ..ops import weno
 from ..parallel import comm
@@ -379,24 +379,39 @@ class AwflDycore:
         """Advance the coupler state by dt_phys with sub-cycled SSPRK3
         (ref: Dycore::timeStep, Dycore.h:107-255). The sub-cycle count
         and the sub-cycle's dt are computed on the device in the state's
-        dtype; the count is read once (one host sync)."""
+        dtype. The eager route reads the count once (one host sync) and
+        checks its range; the device route (``ops/graph.py::
+        device_loops``, the compiled step) loops on ``i < ncycles`` on the
+        device, as pam_tpu's ``lax.while_loop``, runs no sub-cycle for a
+        count out of range, and leaves the check to a device flag that
+        the compiled step's caller reads (``Graphed.check``)."""
         dyn, tracers = self.coupler_to_dynamics(state)
         tracers = torch.where(self.pos, tracers.clamp(min=0.0), tracers)
 
         dt_dyn = self.compute_time_step(state)
         ncycles_t = torch.ceil(_over(dt_phys, dt_dyn)).to(torch.int32)
         dt_cyc = _over(dt_phys, ncycles_t.to(dyn.dtype))
-        ncycles = int(ncycles_t)
-        if not 0 < ncycles < 100000:
-            raise FloatingPointError(
-                f"AWFL sub-cycle count {ncycles} for dt_phys={dt_phys}: the "
-                "CFL time step is not a positive finite number")
-        for _ in range(ncycles):
-            dyn, tracers = self._ssprk3_cycle(dyn, tracers, dt_cyc, state)
-        AwflDycore.timestep.cycles += ncycles
+
+        def fault(n):
+            return (f"AWFL sub-cycle count {n} for dt_phys={dt_phys}: the "
+                    "CFL time step is not a positive finite number")
+        if graph.device_loops():
+            ok = (ncycles_t > 0) & (ncycles_t < 100000)
+            graph.check(ok, FloatingPointError, fault, ncycles_t)
+            ncycles = torch.where(ok, ncycles_t, 0)
+        else:
+            ncycles = int(ncycles_t)
+            if not 0 < ncycles < 100000:
+                raise FloatingPointError(fault(ncycles))
+        dyn, tracers = graph.fori_loop(
+            ncycles, lambda c: self._ssprk3_cycle(*c, dt_cyc, state),
+            (dyn, tracers))
+        graph.count(AwflDycore.timestep, "cycles", ncycles)
         return self.dynamics_to_coupler(state, dyn, tracers)
 
-    timestep.cycles = 0   # sub-cycles taken by every timestep call so far
+    # sub-cycles taken by every timestep call so far (a device tensor once
+    # the compiled step has added to it)
+    timestep.cycles = 0
 
     # --------------------------------------------------------- hydrostatics
     def declare_current_profile_as_hydrostatic(self, state):

@@ -28,7 +28,7 @@ import numpy as np
 import torch
 
 from ..parallel.mesh import per_member
-from . import recon_matrices as rm, weno, weno5
+from . import graph, recon_matrices as rm, weno, weno5
 
 CS = 350.0  # frozen acoustic characteristic speed (ref: Dycore.h:335)
 AX_Y, AX_Z, AX_X = 2, 3, 4      # axes of (nvar, nens, ny, nz, nx)
@@ -212,7 +212,7 @@ def flux_direction_cuda(prim, trac, pres, axis, tables, levels=None,
         rc = fn(args.ctypes.data, packed.ctypes.data, CS, stream)
     if rc != 0:
         raise RuntimeError(f"awfl_flux kernel launch failed: CUDA error {rc}")
-    flux_direction_cuda.launches += 1
+    graph.count(flux_direction_cuda, "launches")
     return sflux, tflux
 
 

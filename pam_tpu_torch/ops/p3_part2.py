@@ -33,6 +33,7 @@ from ..physics.p3 import tables as tbl
 from ..physics.p3.constants import (CONST, QSMALL, NSMALL, MINCLD,
                                     INCLOUD_LIMIT, PRECIP_LIMIT,
                                     MU_R_CONSTANT, LOOKUP_TABLE_1A_DUM1_C)
+from . import graph
 
 # every input array is read once and every output written once: the
 # kernel's bytes are (N_IN + N_OUT) arrays of one value per point
@@ -149,7 +150,7 @@ def p3_part2_cuda(dt, pres, inv_exner, cld_frac_l, cld_frac_i, cld_frac_r,
                 int(ccn_mode == "const"), consts.ctypes.data, stream)
     if rc != 0:
         raise RuntimeError(f"p3_part2 kernel launch failed: CUDA error {rc}")
-    p3_part2_cuda.launches += 1
+    graph.count(p3_part2_cuda, "launches")
 
     k_o = len(p3main._PART2_OUT_KEYS)
     o = dict(st)

@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 from ..parallel import comm
-from . import weno, weno5
+from . import graph, weno, weno5
 
 ORD = weno5.ORD
 TILE = 4608        # values of a block's shared-memory tile (csrc/weno_x.cu)
@@ -136,9 +136,9 @@ def weno_edges_x_cuda(field: torch.Tensor, tables, rows_per_block=None,
                 rb, seg, packed.ctypes.data, stream)
     if rc != 0:
         raise RuntimeError(f"weno_x kernel launch failed: CUDA error {rc}")
-    weno_edges_x_cuda.launches += 1
+    graph.count(weno_edges_x_cuda, "launches")
     if padded:
-        weno_edges_x_cuda.launches_padded += 1
+        graph.count(weno_edges_x_cuda, "launches_padded")
     return left, right
 
 

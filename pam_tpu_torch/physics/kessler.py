@@ -4,8 +4,11 @@ Microphysics.h, the Klemp-Wilhelmson (1978) scheme with CFL-sub-cycled
 upstream rain sedimentation).
 
 Whole-array torch ops over columns. The rain sub-cycle count is one
-global minimum over the whole batch (Microphysics.h:372-390), read to
-the host once per step to drive the Python loop.
+global minimum over the whole batch (Microphysics.h:372-390), a device
+tensor as in pam_tpu. The sub-cycles are ``ops/graph.py::fori_loop``: the
+eager route reads the count once a call, the compiled step
+(``MmfDriver._graphed_single``) loops on the device, as pam_tpu's
+``lax.while_loop`` on ``nt < rainsplit``.
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ import torch
 
 from ..core.constants import Constants
 from ..core.coupler import Coupler
+from ..ops import graph
 from ..parallel import comm
 
 TRACER_NAMES = ("water_vapor", "cloud_liquid", "precip_liquid")
@@ -44,6 +48,14 @@ def _terminal_velocity(qr, r, rhalf):
     return 36.34 * torch.clamp(qr * r, min=0.0) ** 0.1364 * rhalf
 
 
+def _over_count(x, n):
+    """x / n for a trip count n (a 0-d integer tensor), rounded as x /
+    int(n) rounds on x's device: PyTorch's CUDA division by a host scalar
+    multiplies by the scalar's reciprocal, the CPU's divides."""
+    n = n.to(x.dtype)
+    return x * torch.reciprocal(n) if x.is_cuda else x / n
+
+
 def kessler_column(theta, qv, qc, qr, rho, z, exner, dt, c: Constants):
     """Advance the Kessler scheme by dt in column layout: every field is
     (nz, ...cols...) with z leading (surface at 0); rho is dry density, z
@@ -69,12 +81,12 @@ def kessler_column(theta, qv, qc, qr, rho, z, exner, dt, c: Constants):
     dt_t = torch.full((), dt, dtype=theta.dtype, device=theta.device)
     dt2d = torch.where(velqr[:-1] > 1.0e-10, 0.8 * dz_up / velqr[:-1], dt_t)
     dt_max = torch.minimum(comm.pmin_h(dt2d), dt_t)
-    rainsplit = int(torch.ceil(dt_t / dt_max))   # the one host sync
-    kessler_column.rainsplit = rainsplit
-    dt0 = dt_t / rainsplit
+    rainsplit = torch.ceil(dt_t / dt_max).to(torch.int32)
+    graph.publish(kessler_column, "rainsplit", rainsplit)
+    dt0 = _over_count(dt_t, rainsplit)
 
-    precl = torch.zeros_like(theta[0])
-    for _ in range(rainsplit):
+    def subcycle(carry):
+        theta, qv, qc, qr, velqr, precl = carry
         # surface precipitation accumulation (:399-401)
         precl = precl + rho[0] * qr[0] * velqr[0] / rhoqr
         # upstream sedimentation (:403-408)
@@ -103,10 +115,16 @@ def kessler_column(theta, qv, qc, qr, rho, z, exner, dt, c: Constants):
         qc = qc + cond
         qr = qr - ern
         velqr = _terminal_velocity(qr, r, rhalf)
-    return theta, qv, qc, qr, precl / rainsplit
+        return theta, qv, qc, qr, velqr, precl
+
+    # the eager route's one host sync reads rainsplit here
+    theta, qv, qc, qr, _, precl = graph.fori_loop(
+        rainsplit, subcycle,
+        (theta, qv, qc, qr, velqr, torch.zeros_like(theta[0])))
+    return theta, qv, qc, qr, _over_count(precl, rainsplit)
 
 
-kessler_column.rainsplit = 0   # the trip count of the last call
+kessler_column.rainsplit = 0   # the trip count of the last call (a tensor)
 
 
 @dataclasses.dataclass(frozen=True, eq=False)

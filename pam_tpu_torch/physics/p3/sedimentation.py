@@ -5,13 +5,15 @@ ice_sedimentation :3911-4065, generalized_sedimentation :4067-4104,
 calc_first_order_upwind_step :4106-4143).
 
 The reference's per-column ``do while (dt_left > 1e-4)`` becomes one
-Python loop over a whole batch of columns: every column carries its own
-``dt_left``; finished columns take zero-length substeps, and every
-in-loop update is gated on the column still being active, so those
-substeps are exact no-ops. The loop's condition is one
-``bool(torch.any(...))`` per substep round, a host sync on the card.
-``combined_sedimentation`` (the one the P3 step runs) adds the rounds it
-took to its ``rounds`` count.
+loop over a whole batch of columns, ``ops/graph.py::while_loop`` as in
+pam_tpu's ``lax.while_loop``: every column carries its own ``dt_left``;
+finished columns take zero-length substeps, and every in-loop update is
+gated on the column still being active, so those substeps are exact
+no-ops. The loop's condition, ``any(dt_left > 1e-4)``, is a device
+tensor: the eager route reads it once a substep round (a host sync on
+the card), the compiled step (``MmfDriver._graphed_single``) tests it on
+the device. ``combined_sedimentation`` (the one the P3 step runs) adds
+the rounds it took to its ``rounds`` count.
 
 In-cloud values are carried as the reference carries them: the first
 substep uses part2's final in-cloud mixing ratios, every later substep
@@ -25,6 +27,7 @@ from __future__ import annotations
 
 import torch
 
+from ...ops import graph
 from .constants import CONST, QSMALL, NSMALL
 from . import tables as tbl
 from .main import cloud_dsd, rain_dsd, bulk_rho_rime, _gamma
@@ -147,11 +150,12 @@ def _ice_substep(qi, ni, qm, bm, qi_in, ni_in, qm_in, bm_in, dt_left, prt,
 
 
 def _active(*dt_lefts):
-    """Whether any column of any species has time left (the host sync)."""
+    """Whether any column of any species has time left: the loops'
+    predicate, a 0-d bool tensor."""
     m = dt_lefts[0]
     for d in dt_lefts[1:]:
         m = torch.maximum(m, d)
-    return bool(torch.any(m > 1.0e-4))
+    return torch.any(m > 1.0e-4)
 
 
 def _start(q):
@@ -172,11 +176,11 @@ def cloud_sedimentation(qc, nc, rho, inv_rho, cld_frac_l, acn, inv_dz, dt,
     if qc_in is None:
         qc_in, nc_in = qc / cld_frac_l, nc / cld_frac_l
     dtl, prt = _start(qc)
-    dtl = dtl + dt
-    while _active(dtl):
-        qc, nc, qc_in, nc_in, dtl, prt = _cloud_substep(
-            qc, nc, qc_in, nc_in, dtl, prt, rho, inv_rho, cld_frac_l, acn,
-            inv_dz, do_predict_nc)
+    qc, nc, qc_in, nc_in, dtl, prt = graph.while_loop(
+        lambda c: _active(c[4]),
+        lambda c: _cloud_substep(*c, rho, inv_rho, cld_frac_l, acn, inv_dz,
+                                 do_predict_nc),
+        (qc, nc, qc_in, nc_in, dtl + dt, prt))
     return qc, nc, prt * C.inv_rho_h2o / dt
 
 
@@ -189,11 +193,11 @@ def rain_sedimentation(qr, nr, rho, inv_rho, rhofacr, cld_frac_r, inv_dz,
     if qr_in is None:
         qr_in, nr_in = qr / cld_frac_r, nr / cld_frac_r
     dtl, prt = _start(qr)
-    dtl = dtl + dt
-    while _active(dtl):
-        qr, nr, qr_in, nr_in, dtl, prt = _rain_substep(
-            qr, nr, qr_in, nr_in, dtl, prt, rho, inv_rho, cld_frac_r,
-            rhofacr, inv_dz, vn_t, vm_t)
+    qr, nr, qr_in, nr_in, dtl, prt = graph.while_loop(
+        lambda c: _active(c[4]),
+        lambda c: _rain_substep(*c, rho, inv_rho, cld_frac_r, rhofacr,
+                                inv_dz, vn_t, vm_t),
+        (qr, nr, qr_in, nr_in, dtl + dt, prt))
     return qr, nr, prt * C.inv_rho_h2o / dt
 
 
@@ -208,12 +212,11 @@ def ice_sedimentation(qi, ni, qm, bm, rho, inv_rho, rhofaci, cld_frac_i,
         qi_in, ni_in, qm_in, bm_in = (x / cld_frac_i
                                       for x in (qi, ni, qm, bm))
     dtl, prt = _start(qi)
-    dtl = dtl + dt
-    while _active(dtl):
-        (qi, ni, qm, bm, qi_in, ni_in, qm_in, bm_in, dtl,
-         prt) = _ice_substep(qi, ni, qm, bm, qi_in, ni_in, qm_in, bm_in,
-                             dtl, prt, rho, inv_rho, cld_frac_i, rhofaci,
-                             inv_dz, ice_tab)
+    qi, ni, qm, bm, _, _, _, _, dtl, prt = graph.while_loop(
+        lambda c: _active(c[8]),
+        lambda c: _ice_substep(*c, rho, inv_rho, cld_frac_i, rhofaci,
+                               inv_dz, ice_tab),
+        (qi, ni, qm, bm, qi_in, ni_in, qm_in, bm_in, dtl + dt, prt))
     return qi, ni, qm, bm, prt * C.inv_rho_h2o / dt
 
 
@@ -225,7 +228,7 @@ def combined_sedimentation(qc, nc, qr, nr, qi, ni, qm, bm, rho, inv_rho,
     its own per-column ``dt_left`` and substep length and every update is
     gated on that species' column being active, so a finished species
     takes exact no-op substeps and the results match the three loops run
-    separately. One host sync per substep round (not three).
+    separately. One predicate a substep round (not three).
 
     inc: part2's final (qc_in, qr_in, qi_in, qm_in, nc_in, nr_in, ni_in,
     bm_in) for the first substep; default plain division.
@@ -242,19 +245,25 @@ def combined_sedimentation(qc, nc, qr, nr, qi, ni, qm, bm, rho, inv_rho,
         qc_in, qr_in, qi_in, qm_in, nc_in, nr_in, ni_in, bm_in = inc
     zero, prt_c = _start(qc)
     prt_r, prt_i = torch.zeros_like(zero), torch.zeros_like(zero)
-    dtl_c = dtl_r = dtl_i = zero + dt
-    while _active(dtl_c, dtl_r, dtl_i):
-        combined_sedimentation.rounds += 1
-        qc, nc, qc_in, nc_in, dtl_c, prt_c = _cloud_substep(
-            qc, nc, qc_in, nc_in, dtl_c, prt_c, rho, inv_rho, cld_frac_l,
-            acn, inv_dz, do_predict_nc)
-        qr, nr, qr_in, nr_in, dtl_r, prt_r = _rain_substep(
-            qr, nr, qr_in, nr_in, dtl_r, prt_r, rho, inv_rho, cld_frac_r,
-            rhofacr, inv_dz, vn_t, vm_t)
-        (qi, ni, qm, bm, qi_in, ni_in, qm_in, bm_in, dtl_i,
-         prt_i) = _ice_substep(qi, ni, qm, bm, qi_in, ni_in, qm_in, bm_in,
-                               dtl_i, prt_i, rho, inv_rho, cld_frac_i,
-                               rhofaci, inv_dz, ice_tab)
+    dtl = zero + dt
+
+    def round_(c):
+        cloud, rain, ice = c
+        return (_cloud_substep(*cloud, rho, inv_rho, cld_frac_l, acn,
+                               inv_dz, do_predict_nc),
+                _rain_substep(*rain, rho, inv_rho, cld_frac_r, rhofacr,
+                              inv_dz, vn_t, vm_t),
+                _ice_substep(*ice, rho, inv_rho, cld_frac_i, rhofaci,
+                             inv_dz, ice_tab))
+    cloud, rain, ice = graph.while_loop(
+        lambda c: _active(c[0][4], c[1][4], c[2][8]), round_,
+        ((qc, nc, qc_in, nc_in, dtl, prt_c),
+         (qr, nr, qr_in, nr_in, dtl, prt_r),
+         (qi, ni, qm, bm, qi_in, ni_in, qm_in, bm_in, dtl, prt_i)),
+        counter=(combined_sedimentation, "rounds"))
+    qc, nc, _, _, _, prt_c = cloud
+    qr, nr, _, _, _, prt_r = rain
+    qi, ni, qm, bm, _, _, _, _, _, prt_i = ice
     s = C.inv_rho_h2o / dt
     return (qc, nc, prt_c * s, qr, nr, prt_r * s,
             qi, ni, qm, bm, prt_i * s)

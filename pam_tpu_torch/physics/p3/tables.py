@@ -190,11 +190,17 @@ def _hat(n, x):
     return torch.clamp(1.0 - (k - x[..., None]).abs(), min=0.0)
 
 
+def _entries(tab, indices):
+    """tab[..., indices] as views stacked on the device: a list index
+    would be a host copy, which a captured step cannot make."""
+    return torch.stack([tab[..., i] for i in indices], dim=-1)
+
+
 def access_ice_table_multi(tab, indices, dum1, dum4, dum5):
     """Trilinear interpolation of several table entries at one set of
     fractional positions, one batched contraction (micro_p3.F90:
     1508-1545). Returns a tuple in the order of ``indices``."""
-    t = tab[..., list(indices)]                   # (5, 4, ISIZE, K)
+    t = _entries(tab, indices)                   # (5, 4, ISIZE, K)
     wi = _hat(t.shape[2], dum1)
     wii = _hat(t.shape[1], dum4)
     wjj = _hat(t.shape[0], dum5)
@@ -210,7 +216,7 @@ def access_collect_table_multi(tab, indices, dum1, dum3, dum4, dum5):
     :1548-1615). The size axis is contracted first, then the rain-size
     axis, so no (points, ISIZE, RCOLLSIZE) outer product is formed.
     Returns a tuple in the order of ``indices``."""
-    t = tab[..., list(indices)]                   # (5, 4, ISIZE, J, K)
+    t = _entries(tab, indices)                   # (5, 4, ISIZE, J, K)
     wi = _hat(t.shape[2], dum1)
     wj = _hat(t.shape[3], dum3)
     wii = _hat(t.shape[1], dum4)
@@ -256,7 +262,7 @@ def _corner(n, x):
 def access_ice_table_gather(tab, indices, dum1, dum4, dum5):
     """:func:`access_ice_table_multi` by gathers: 8 corners, contracted
     over size, then rime, then density."""
-    t = tab[..., list(indices)]                   # (5, 4, ISIZE, K)
+    t = _entries(tab, indices)                   # (5, 4, ISIZE, K)
     (i, wi0, wi1), (k, wk0, wk1), (j, wj0, wj1) = (
         _corner(n, x) for n, x in ((t.shape[2], dum1), (t.shape[1], dum4),
                                    (t.shape[0], dum5)))
@@ -272,7 +278,7 @@ def access_ice_table_gather(tab, indices, dum1, dum4, dum5):
 def access_collect_table_gather(tab, indices, dum1, dum3, dum4, dum5):
     """:func:`access_collect_table_multi` by gathers: 16 corners,
     contracted over size, rain size, rime, then density."""
-    t = tab[..., list(indices)]                   # (5, 4, ISIZE, J, K)
+    t = _entries(tab, indices)                   # (5, 4, ISIZE, J, K)
     (i, wi0, wi1), (r, wr0, wr1), (k, wk0, wk1), (j, wj0, wj1) = (
         _corner(n, x) for n, x in ((t.shape[2], dum1), (t.shape[3], dum3),
                                    (t.shape[1], dum4), (t.shape[0], dum5)))

@@ -102,8 +102,37 @@ def device_us(evt):
     return evt.cuda_time_total if t is None else t
 
 
-def analyse(events, nsteps):
-    """Per-step summary of a trace's events (see the module docstring)."""
+def device_totals(prof, nsteps):
+    """(device launches, device ms) a step of a torch.profiler trace, the
+    ``kernels_per_step`` and ``device_ms_per_step`` of :func:`analyse`:
+    summed over the trace's raw events without building its per-event
+    records (which take seconds for a trace of tens of thousands of
+    launches)."""
+    n = ns = 0
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA and \
+                not e.name().startswith("pam:"):
+            n += 1
+            ns += e.duration_ns()
+    return n / nsteps, ns / nsteps / 1e6
+
+
+def own_launches(prof) -> dict:
+    """Launches of each of the package's kernels (``OWN_KERNELS``) in a
+    torch.profiler trace, by name."""
+    n = dict.fromkeys(OWN_KERNELS, 0)
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            for k in OWN_KERNELS:
+                n[k] += k in e.name()
+    return n
+
+
+def analyse(prof, nsteps):
+    """Per-step summary of a torch.profiler trace (see the module
+    docstring)."""
+    kernels, device_ms = device_totals(prof, nsteps)
+    events = prof.events()
     dev = [e for e in events if e.device_type == DeviceType.CUDA
            and not e.name.startswith("pam:")]
     span = (max(e.time_range.end for e in dev)
@@ -119,9 +148,8 @@ def analyse(events, nsteps):
             layers[e.name][0] += device_us(e)
             layers[e.name][1] += e.cpu_time_total
     return {
-        "kernels_per_step": len(dev) / nsteps,
-        "device_ms_per_step": sum(v[1] for v in by_name.values())
-        / nsteps / 1e3,
+        "kernels_per_step": kernels,
+        "device_ms_per_step": device_ms,
         "traced_window_ms_per_step": span / nsteps / 1e3,
         "busy_share": busy / span,
         "layers": {k: (d / nsteps / 1e3, h / nsteps / 1e3)
@@ -168,7 +196,7 @@ def main(argv=None):
         for _ in range(STEPS):
             state = drv.crm_phys_step(state)
         torch.cuda.synchronize()
-    r = analyse(prof.events(), STEPS)
+    r = analyse(prof, STEPS)
     print(f"traced {STEPS} steps: {r['kernels_per_step']:.0f} device "
           f"ops/step, device time {r['device_ms_per_step']:.3f} ms/step in "
           f"a window of {r['traced_window_ms_per_step']:.3f} ms/step, "

@@ -13,6 +13,7 @@ explicit SSPRK3 substeps at the acoustic CFL.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any
 
 import numpy as np
@@ -29,6 +30,13 @@ from .operators import mirror_layer, rollm
 from .tendencies import SpamTendencies
 from .thermo import ConstantKappaVirtualPottemp, ThermoConstants
 from .varset import VariableSet
+
+
+@functools.lru_cache(maxsize=None)
+def _flags(flags: tuple, device) -> torch.Tensor:
+    """A bool tensor of ``flags`` on ``device``, built once: a host copy
+    inside the step would synchronise (and cannot be captured)."""
+    return torch.as_tensor(flags, device=device)
 
 
 def exact_inverse_avg(u, axis: int = -1):
@@ -338,7 +346,8 @@ class SpamDycore:
             def stepper(d_, v_, w_):
                 return self.tend.ssprk3_step(d_, v_, w_, geop, dtcrm)
         dens, v, w = self.coupler_to_dynamics(state)
-        pos = torch.as_tensor(self.varset.dens_pos, device=dens.device)
+        pos = _flags(tuple(bool(p) for p in self.varset.dens_pos),
+                     dens.device)
         pos = pos.reshape((-1,) + (1,) * (dens.ndim - 1))
         for _ in range(n_substeps):
             dens, v, w = stepper(dens, v, w)

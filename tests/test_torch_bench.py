@@ -5,8 +5,9 @@ pam_tpu fails, with PAM_BENCH_DEVICE=cpu, and is held to bench.py's
 contract (tests/test_bench_smoke.py): one parseable JSON line per config
 on stdout, the last the line of record (Kessler on SPAM+SI), with unit,
 value > 0, ms_per_step > 0 and reps; plus the port's own keys
-(first_step_s, peak_mib, chip) and no baseline ratio (the baseline is a
-TPU figure). Once through the single-config route, once through the
+(first_step_s, peak_mib, chip, capture_s: the compiled step's capture,
+of which a CPU run makes none) and no baseline ratio (the baseline is
+a TPU figure). Once through the single-config route, once through the
 default rows at full width (65x1x50) with tiny ensembles and one step
 of each kind, and once through a row run in chunks (bench.py's rows 2-4
 run so, each chunk stepped alone). The Kessler row's start state is
@@ -37,7 +38,7 @@ runpy.run_module("pam_tpu_torch.bench", run_name="__main__")
 """
 KEYS = {"metric", "value", "unit", "config", "ms_per_step",
         "ms_per_step_median", "reps", "device_ms_per_step", "first_step_s",
-        "peak_mib", "chip"}
+        "peak_mib", "chip", "capture_s"}
 RECORD = "micro=kessler,sgs=none,dycore=spam"
 
 
@@ -64,6 +65,7 @@ def run_bench(env_extra, args=()):
         # a CPU run states no device time or memory, and says where it ran
         assert rec["chip"] == "cpu"
         assert rec["device_ms_per_step"] is None and rec["peak_mib"] is None
+        assert rec["capture_s"] is None
     return recs, proc.stderr
 
 
