@@ -8,8 +8,10 @@ the source, of every header ``csrc/*.cuh`` (``csrc/weno5.cuh`` is the
 limiter that ``weno_x.cu`` and ``awfl_flux.cu`` include,
 ``csrc/p3_tables.cuh`` the table lookups of ``p3_part2.cu``) and of the
 flags (``csrc/graph_while.cu`` is no kernel of the TPU's but the capture
-of a CUDA graph with WHILE nodes that ``ops/graph.py`` drives): an edited source or header is rebuilt and an unchanged one is
-reused. A missing ``nvcc`` or a failed compile raises with the compiler's
+of a CUDA graph with WHILE nodes that ``ops/graph.py`` drives,
+``csrc/trace_stamp.cu`` the device clock stamps of
+``utils/observe.py``'s tracer): an edited source or header is rebuilt and
+an unchanged one is reused. A missing ``nvcc`` or a failed compile raises with the compiler's
 output; nothing falls back to the plain versions.
 """
 
@@ -166,4 +168,9 @@ def library() -> types.SimpleNamespace:
     bind(cdll, "pam_capture_end", [ptr, ptr, i32, ptr])
     bind(cdll, "pam_graph_launch", [ptr, ptr])
     bind(cdll, "pam_graph_destroy", [ptr])
+    cdll = ctypes.CDLL(str(paths["trace_stamp.cu"]))
+    bind(cdll, "pam_stamp_begin", [ptr, ptr])
+    bind(cdll, "pam_stamp_end", [ptr, ptr, ptr, ptr, ptr, i64, i32, ptr])
+    bind(cdll, "pam_stamp_now", [ptr, ptr])
+    bind(cdll, "pam_stamp_ticks", [ptr, i32, ptr])
     return lib

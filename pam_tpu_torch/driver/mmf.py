@@ -30,7 +30,6 @@ from typing import Any, Callable
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..core.coupler import Coupler
 from ..dycore.awfl import AwflDycore
@@ -41,6 +40,7 @@ from ..ops import graph, tridiag
 from ..physics import kessler, p3
 from ..physics.sgs import shoc
 from ..spam.dycore import SpamDycore
+from ..utils import observe
 from . import supercell_column
 
 # the routes of MmfDriver.run for a state of several chunks
@@ -146,26 +146,28 @@ class MmfDriver:
 
     def _crm_phys_step_single(self, state):
         # the pam: spans name the layers in a torch.profiler trace
-        # (python -m pam_tpu_torch.profile_step)
+        # (python -m pam_tpu_torch.profile_step) and, with the tracer on,
+        # in the compiled step's replays (utils/observe.py)
         cpl = self.coupler
-        if self.apply_gcm_forcing:
-            with record_function("pam:forcing"):
-                state = gcm_forcing.apply_gcm_forcing_tendencies(
-                    cpl, state, self.dt_crm_phys, self.dt_gcm)
-        with record_function("pam:dycore"):
-            state = self.dycore.timestep(state, self.dt_crm_phys)
-        if self.apply_sponge:
-            with record_function("pam:sponge"):
-                state = sponge.sponge_layer(cpl, state, self.dt_crm_phys)
-        if self.sgs is not None:
-            with record_function("pam:sgs"):
-                state = self.sgs.timestep(state, self.dt_crm_phys)
-        if self.micro is not None:
-            with record_function("pam:micro"):
-                state = self.micro.timestep(state, self.dt_crm_phys)
-        if self.rad is not None:
-            with record_function("pam:rad"):
-                state = self.rad.timestep(state, self.dt_crm_phys)
+        with observe.span("pam:step"):
+            if self.apply_gcm_forcing:
+                with observe.span("pam:forcing"):
+                    state = gcm_forcing.apply_gcm_forcing_tendencies(
+                        cpl, state, self.dt_crm_phys, self.dt_gcm)
+            with observe.span("pam:dycore"):
+                state = self.dycore.timestep(state, self.dt_crm_phys)
+            if self.apply_sponge:
+                with observe.span("pam:sponge"):
+                    state = sponge.sponge_layer(cpl, state, self.dt_crm_phys)
+            if self.sgs is not None:
+                with observe.span("pam:sgs"):
+                    state = self.sgs.timestep(state, self.dt_crm_phys)
+            if self.micro is not None:
+                with observe.span("pam:micro"):
+                    state = self.micro.timestep(state, self.dt_crm_phys)
+            if self.rad is not None:
+                with observe.span("pam:rad"):
+                    state = self.rad.timestep(state, self.dt_crm_phys)
         return state
 
     def _forcing(self, state):
@@ -173,13 +175,14 @@ class MmfDriver:
         holds several: they are per member, and on the chunks' shapes they
         take the reduction order that the host route and a chunk stepped
         alone take (pam_tpu computes them on the full state here, the same
-        values up to that order)."""
-        n = self.n_chunks(state)
-        if n == 1:
-            return gcm_forcing.compute_gcm_forcing_tendencies(
-                self.coupler, state, self.dt_gcm)
-        return _join_ens([gcm_forcing.compute_gcm_forcing_tendencies(
-            self.coupler, c, self.dt_gcm) for c in _split_ens(state, n)])
+        values up to that order). A host span of the tracer."""
+        with observe.host_span("host:forcing"):
+            n = self.n_chunks(state)
+            if n == 1:
+                return gcm_forcing.compute_gcm_forcing_tendencies(
+                    self.coupler, state, self.dt_gcm)
+            return _join_ens([gcm_forcing.compute_gcm_forcing_tendencies(
+                self.coupler, c, self.dt_gcm) for c in _split_ens(state, n)])
 
     def gcm_step(self, state, step: Callable = None):
         """One GCM step: forcing tendencies (unless apply_gcm_forcing is
@@ -232,17 +235,21 @@ class MmfDriver:
         """The compiled chunk step (cached on the driver), the counterpart
         of pam_tpu's ``_jitted_single`` (pam_tpu/driver/mmf.py:221-225):
         :meth:`_crm_phys_step_single` captured into one CUDA graph for the
-        state's keys, shapes, dtypes and device and ``PAM_TRIDIAG``'s
-        route (a new key captures again), its loops decided on the device.
+        state's keys, shapes, dtypes and device, ``PAM_TRIDIAG``'s
+        route and whether the tracer is on (``utils/observe.py``: a traced
+        step holds its stamps; a new key captures again), its loops
+        decided on the device.
         A call copies the state in, replays and returns fresh tensors; a
         CPU state takes the eager step; a capture that fails raises. Its
         ``check()`` raises a range check (AWFL's sub-cycle count) that
         failed in a replay."""
         if self.__dict__.get("_graph_single_cache") is None:
-            # the route of a card's solves: auto takes PCR there
+            # the route of a card's solves (auto takes PCR there), and
+            # the tracer's stamps
             self._graph_single_cache = graph.GraphedFunction(
                 self._crm_phys_step_single,
-                key=lambda: tridiag._TRIDIAG_MODE != "thomas")
+                key=lambda: (tridiag._TRIDIAG_MODE != "thomas",
+                             observe.active()))
         return self._graph_single_cache
 
     def crm_phys_step_hostchunked(self, state):

@@ -30,13 +30,13 @@ from typing import Any
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..core.coupler import Coupler, hmean
 from ..ops import awfl_flux, graph
 from ..ops import recon_matrices as rm
 from ..ops import weno
 from ..parallel import comm
+from ..utils import observe
 
 # State-vector variable ids (ref: Dycore.h:27-31)
 ID_R, ID_U, ID_V, ID_W, ID_T = 0, 1, 2, 3, 4
@@ -280,14 +280,14 @@ class AwflDycore:
                              (AX_Z, dz4, "z")):
             if axis == AX_Y and cpl.sim2d:
                 continue
-            with record_function(f"pam:awfl.flux_{tag}"):
+            with observe.span(f"pam:awfl.flux_{tag}"):
                 fluxes.append((axis, d) + self._direction(dyn_p, trac_p,
                                                           pres_p, axis))
 
         # ---- FCT positivity limiting for positive tracers ----
         # (ref: Dycore.h:525-550, data-parallel; see the module docstring)
         if tpos.any():
-            with record_function("pam:awfl.fct"):
+            with observe.span("pam:awfl.fct"):
                 fluxes = self._fct(fluxes, tracers_start, dt, dz4)
 
         # ---- flux divergence + gravity source ---- (ref: Dycore.h:553-584)
@@ -355,7 +355,7 @@ class AwflDycore:
             return torch.where(pos, tr.clamp(min=0.0), tr)
 
         def tend(d, t, start, dtt):
-            with record_function("pam:awfl.tendencies"):
+            with observe.span("pam:awfl.tendencies"):
                 return self.tendencies(d, t, start, dtt, state)
 
         # Stage 1
@@ -405,7 +405,7 @@ class AwflDycore:
                 raise FloatingPointError(fault(ncycles))
         dyn, tracers = graph.fori_loop(
             ncycles, lambda c: self._ssprk3_cycle(*c, dt_cyc, state),
-            (dyn, tracers))
+            (dyn, tracers), name="awfl.acoustic")
         graph.count(AwflDycore.timestep, "cycles", ncycles)
         return self.dynamics_to_coupler(state, dyn, tracers)
 

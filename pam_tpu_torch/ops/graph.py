@@ -51,6 +51,8 @@ import torch
 import torch.utils._pytree as pytree
 from torch.overrides import TorchFunctionMode
 
+from ..utils import observe
+
 _tls = threading.local()
 
 
@@ -188,10 +190,12 @@ def check(ok: torch.Tensor, exc: type, message, *values):
 
 @contextlib.contextmanager
 def _quiet():
-    """count and publish change nothing inside (the warm-up steps)."""
+    """count, publish and the tracer's stamps and trips change nothing
+    inside (the warm-up steps)."""
     outer, _tls.quiet = _get("quiet", False), True
     try:
-        yield
+        with observe.paused():
+            yield
     finally:
         _tls.quiet = outer
 
@@ -218,15 +222,17 @@ def _read(pred) -> bool:
         _tls.in_predicate = False
 
 
-def while_loop(cond_fn, body_fn, carry, counter=None):
+def while_loop(cond_fn, body_fn, carry, counter=None, name=None):
     """``jax.lax.while_loop``: ``carry = body_fn(carry)`` while
     ``cond_fn(carry)``, a 0-d bool tensor on the carry's device, holds.
     The carry is a tuple, list or dict (nested or not) of tensors whose
     shapes and dtypes the body keeps. ``counter=(owner, attr)`` adds the
-    number of trips to ``owner.attr`` (:func:`count`)."""
+    number of trips to ``owner.attr`` (:func:`count`); ``name`` adds them
+    to the tracer's loop of that name (``utils/observe.py::add_trips``),
+    where the tracer is on."""
     rec = _get("recorder")
     if rec is not None:
-        return rec.while_loop(cond_fn, body_fn, carry, counter)
+        return rec.while_loop(cond_fn, body_fn, carry, counter, name)
     leaves = pytree.tree_leaves(carry)
     if (leaves and leaves[0].is_cuda
             and torch.cuda.is_current_stream_capturing()):
@@ -234,17 +240,22 @@ def while_loop(cond_fn, body_fn, carry, counter=None):
                            "ops/graph.py's Graphed did not start")
     trips = 0
     while _read(cond_fn(carry)):
-        carry = body_fn(carry)
+        with observe.loop_body():
+            carry = body_fn(carry)
         trips += 1
     if counter is not None:
         count(*counter, trips)
+    if name is not None:
+        observe.add_trips(name, trips)
     return carry
 
 
-def fori_loop(n, body_fn, carry):
+def fori_loop(n, body_fn, carry, name=None):
     """``carry = body_fn(carry)`` ``n`` times. ``n`` is an int or a 0-d
     integer tensor; the eager route reads such a tensor once, the device
-    route (:func:`device_loops`) loops on ``i < n`` with it on the device."""
+    route (:func:`device_loops`) loops on ``i < n`` with it on the device.
+    ``name``: the tracer's loop that the trips add to (:func:`while_loop`).
+    """
     if isinstance(n, torch.Tensor):
         if not device_loops():
             n = int(n)
@@ -252,10 +263,13 @@ def fori_loop(n, body_fn, carry):
             i0 = torch.zeros_like(n)
             _, carry = while_loop(lambda c: c[0] < n,
                                   lambda c: (c[0] + 1, body_fn(c[1])),
-                                  (i0, carry))
+                                  (i0, carry), name=name)
             return carry
     for _ in range(n):
-        carry = body_fn(carry)
+        with observe.loop_body():
+            carry = body_fn(carry)
+    if name is not None:
+        observe.add_trips(name, n)
     return carry
 
 
@@ -297,7 +311,7 @@ class _Recorder:
                                "under capture")
         self.values.append((owner, attr, value))
 
-    def while_loop(self, cond_fn, body_fn, carry, counter):
+    def while_loop(self, cond_fn, body_fn, carry, counter, name):
         """A WHILE node in the graph being captured on the current stream,
         its body captured from ``body_fn`` on the same stream."""
         if self.trips is not None:
@@ -319,7 +333,8 @@ class _Recorder:
         self.trips = trips
         ended = False
         try:
-            new, new_spec = pytree.tree_flatten(body_fn(state))
+            with observe.loop_body():
+                new, new_spec = pytree.tree_flatten(body_fn(state))
             if new_spec != spec:
                 raise ValueError(f"while_loop: the body returned {new_spec}, "
                                  f"the carry is {spec}")
@@ -349,6 +364,8 @@ class _Recorder:
                 lib.pam_while_abort(stream, parent, node)
         if counter is not None:
             self.count(*counter, trips)
+        if name is not None:
+            observe.add_trips(name, trips)
         return state
 
     def after_replay(self):
@@ -395,9 +412,17 @@ class Graphed:
     and library handles come into being outside capture), then the
     capture, under :func:`no_host_reads`. The warm-up step counts and
     publishes nothing, so a kernel's count is its launches in the
-    replays."""
+    replays.
+
+    With the tracer on (``utils/observe.py``) the capture, each phase of a
+    call (the copies in, the launch, the copies out, the counts and checks
+    applied after it) and :meth:`check` are host spans."""
 
     def __init__(self, fn, example: dict):
+        with observe.host_span("host:graph.capture"):
+            self._capture(fn, example)
+
+    def _capture(self, fn, example: dict):
         device = next(iter(example.values())).device
         for k, v in example.items():
             if not isinstance(v, torch.Tensor) or v.device != device:
@@ -461,28 +486,33 @@ class Graphed:
         self.capture_s = time.perf_counter() - t0
 
     def __call__(self, state: dict) -> dict:
-        stream = torch.cuda.current_stream(self.device).cuda_stream
-        torch._foreach_copy_([self.inputs[k] for k in self.keys],
-                             [state[k] for k in self.keys])
-        rc = _lib().pam_graph_launch(self.exec, stream)
-        if rc != 0:
-            raise RuntimeError(f"pam_graph_launch: CUDA error {rc}")
-        outs = {k: torch.empty_like(v) for k, v in self.outputs.items()}
-        torch._foreach_copy_(list(outs.values()), list(self.outputs.values()))
-        self.recorder.after_replay()
-        for bad, first, ok, values, _, _ in self.faults:
-            # the values of the first failing replay, then the flag
-            for f, v in zip(first, values):
-                f.copy_(torch.where(bad, f, v))
-            bad.logical_or_(ok.logical_not())
+        with observe.host_span("host:graph.copy_in"):
+            torch._foreach_copy_([self.inputs[k] for k in self.keys],
+                                 [state[k] for k in self.keys])
+        with observe.host_span("host:graph.launch"):
+            stream = torch.cuda.current_stream(self.device).cuda_stream
+            rc = _lib().pam_graph_launch(self.exec, stream)
+            if rc != 0:
+                raise RuntimeError(f"pam_graph_launch: CUDA error {rc}")
+        with observe.host_span("host:graph.copy_out"):
+            outs = {k: torch.empty_like(v) for k, v in self.outputs.items()}
+            torch._foreach_copy_(list(outs.values()),
+                                 list(self.outputs.values()))
+        with observe.host_span("host:graph.after_replay"):
+            self.recorder.after_replay()
+            for bad, first, ok, values, _, _ in self.faults:
+                # the values of the first failing replay, then the flag
+                for f, v in zip(first, values):
+                    f.copy_(torch.where(bad, f, v))
+                bad.logical_or_(ok.logical_not())
         return outs
 
     def check(self):
         """Raise the first range check that failed in a replay so far
         (one host read for all of them)."""
-        if not self.faults:
-            return
-        bads = torch.stack([f[0] for f in self.faults]).tolist()
+        with observe.host_span("host:graph.check"):
+            bads = (torch.stack([f[0] for f in self.faults]).tolist()
+                    if self.faults else [])
         for is_bad, (_, first, _, _, exc, message) in zip(bads, self.faults):
             if is_bad:
                 raise exc(message(*(int(v) for v in first)))

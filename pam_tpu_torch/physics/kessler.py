@@ -120,7 +120,8 @@ def kessler_column(theta, qv, qc, qr, rho, z, exner, dt, c: Constants):
     # the eager route's one host sync reads rainsplit here
     theta, qv, qc, qr, _, precl = graph.fori_loop(
         rainsplit, subcycle,
-        (theta, qv, qc, qr, velqr, torch.zeros_like(theta[0])))
+        (theta, qv, qc, qr, velqr, torch.zeros_like(theta[0])),
+        name="kessler.rain")
     return theta, qv, qc, qr, _over_count(precl, rainsplit)
 
 

@@ -19,6 +19,7 @@ import math
 import numpy as np
 import torch
 
+from ...utils import observe
 from .constants import (CONST, QSMALL, NSMALL, MU_R_CONSTANT, MINCLD,
                         INCLOUD_LIMIT, PRECIP_LIMIT)
 from . import tables as tbl
@@ -917,17 +918,19 @@ def p3_main(qc, nc, qr, nr, qv, th, qi, qm, ni, bm, pres, dz, nc_nuceat_tend,
     st = p3_main_part1(dt, pres, dpres, dz, nc_nuceat_tend, inv_exner,
                        exner, inv_cl, inv_ci, inv_cr, t_atm, qv, th, qc, nc,
                        qr, nr, qi, ni, qm, bm, nccn_prescribed, ccn_mode)
-    st, diags2 = p3_main_part2(dt, pres, inv_exner, cld_frac_l, cld_frac_i,
-                               cld_frac_r, inv_cl, inv_ci, inv_cr,
-                               ni_activated, inv_qc_relvar, qv_prev, t_prev,
-                               st, ccn_mode)
+    with observe.span("pam:p3.part2"):
+        st, diags2 = p3_main_part2(dt, pres, inv_exner, cld_frac_l,
+                                   cld_frac_i, cld_frac_r, inv_cl, inv_ci,
+                                   inv_cr, ni_activated, inv_qc_relvar,
+                                   qv_prev, t_prev, st, ccn_mode)
     rho, inv_rho = st["rho"], st["inv_rho"]
-    (qc2, nc2, prt_liq_c, qr2, nr2, prt_liq_r, qi2, ni2, qm2, bm2,
-     prt_ice) = sed.combined_sedimentation(
-        st["qc"], st["nc"], st["qr"], st["nr"], st["qi"], st["ni"],
-        st["qm"], st["bm"], rho, inv_rho, cld_frac_l, cld_frac_r,
-        cld_frac_i, st["acn"], st["rhofacr"], st["rhofaci"], inv_dz, dt,
-        do_predict_nc=(ccn_mode != "const"), inc=st["inc"])
+    with observe.span("pam:p3.sedimentation"):
+        (qc2, nc2, prt_liq_c, qr2, nr2, prt_liq_r, qi2, ni2, qm2, bm2,
+         prt_ice) = sed.combined_sedimentation(
+            st["qc"], st["nc"], st["qr"], st["nr"], st["qi"], st["ni"],
+            st["qm"], st["bm"], rho, inv_rho, cld_frac_l, cld_frac_r,
+            cld_frac_i, st["acn"], st["rhofacr"], st["rhofaci"], inv_dz,
+            dt, do_predict_nc=(ccn_mode != "const"), inc=st["inc"])
     # homogeneous freezing thresholds on the pre-part2 temperature, as the
     # reference does (t_atm is last set at the end of part1, :474, 1456)
     qc2, nc2, qr2, nr2, qi2, ni2, qm2, bm2, th2 = homogeneous_freezing(

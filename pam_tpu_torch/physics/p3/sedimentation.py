@@ -260,7 +260,7 @@ def combined_sedimentation(qc, nc, qr, nr, qi, ni, qm, bm, rho, inv_rho,
         ((qc, nc, qc_in, nc_in, dtl, prt_c),
          (qr, nr, qr_in, nr_in, dtl, prt_r),
          (qi, ni, qm, bm, qi_in, ni_in, qm_in, bm_in, dtl, prt_i)),
-        counter=(combined_sedimentation, "rounds"))
+        counter=(combined_sedimentation, "rounds"), name="p3.sedimentation")
     qc, nc, _, _, _, prt_c = cloud
     qr, nr, _, _, _, prt_r = rain
     qi, ni, qm, bm, _, _, _, _, _, prt_i = ice

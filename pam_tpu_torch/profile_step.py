@@ -24,11 +24,28 @@ step:
   span that encloses the launch, and the layer rows above leave it out;
 - the kernels that take the most device time.
 
+With ``--compiled`` it profiles the compiled step instead
+(``MmfDriver._graphed_single``, a CUDA graph a step, which
+``torch.profiler`` cannot see into) with the program's tracer
+(``utils/observe.py``): the CRM steps of one GCM step from one forced
+start state, with a GCM boundary after the first (the range checks'
+synchronisation, then the next forcing, as ``MmfDriver.run`` has them),
+untraced and traced in turns (untraced, traced, traced, untraced), CUDA
+events around each run; it prints the ms a step of each and what the
+tracer costs, then, from the traced runs, the device ms a step in each
+``pam:`` span inside the graph, the trips a step of each named loop, the
+device ms a step outside the graph (the gaps between one replay's
+``pam:step`` and the next one's on the tracer's timeline), and the widest
+of those gaps, each with the host span (``observe.host_span``: the
+graph's copies in, launch, copies out and after-replay updates, its
+check, the forcing) that covers most of it on the same clock: what the
+host was doing while the card sat between two replays.
+
 Usage (on a machine with the card):
 
     python -m pam_tpu_torch.profile_step [--nens 128] [--dtype f32]
         [--micro kessler|p3] [--sgs none|shoc] [--dycore spam|awfl]
-        [--grid3d]
+        [--grid3d] [--compiled]
 """
 
 from __future__ import annotations
@@ -45,12 +62,14 @@ from torch.profiler import ProfilerActivity, profile
 from .driver.mmf import setup_supercell_mmf
 from .dycore.awfl import AwflDycore
 from .modules import gcm_forcing
+from .utils import observe
 
 FULL = dict(nx=65, ny=1, nz=50, xlen=128000.0, ylen=64000.0, zlen=20000.0,
             dt_gcm=900.0, dt_crm_phys=20.0)
 FULL3D = dict(FULL, nx=32, ny=32, xlen=64000.0, ylen=64000.0)
 DTYPES = {"f32": torch.float32, "f64": torch.float64}
 WARMUP, STEPS, TOP = 3, 5, 12
+GAPS = 5   # the widest gaps between replays that --compiled names
 OWN_KERNELS = ("weno_x_kernel", "p3_part2_kernel", "awfl_flux_kernel")
 
 
@@ -158,6 +177,119 @@ def analyse(prof, nsteps):
     }
 
 
+def outside_gaps(ring: list) -> list:
+    """(begin, end) of each gap between consecutive ``pam:step`` entries of
+    a tracer timeline."""
+    steps = sorted((b, e) for name, b, e in ring if name == "pam:step")
+    return [(e, b) for (_, e), (b, _) in zip(steps, steps[1:])]
+
+
+def outside_ms(ring: list) -> float:
+    """Total ms of the gaps between consecutive ``pam:step`` entries of a
+    tracer timeline."""
+    return sum(b - e for e, b in outside_gaps(ring)) / 1e6
+
+
+def widest_gaps(snap: dict, n: int = GAPS) -> list:
+    """The ``n`` widest gaps between replays on the timeline of a tracer
+    snapshot, widest first: (ms, ms from the first replay's begin, the
+    host span that overlaps the gap most or None, the share of the gap it
+    overlaps)."""
+    gaps = outside_gaps(snap["ring"])
+    if not gaps:
+        return []
+    t0 = min(b for name, b, _ in snap["ring"] if name == "pam:step")
+    out = []
+    for g0, g1 in sorted(gaps, key=lambda g: g[0] - g[1])[:n]:
+        width = max(g1 - g0, 1)
+        best, share = None, 0.0
+        for name, hb, he in snap["host"]:
+            over = (min(he, g1) - max(hb, g0)) / width
+            if over > share:
+                best, share = name, over
+        out.append(((g1 - g0) / 1e6, (g0 - t0) / 1e6, best, share))
+    return out
+
+
+def boundary_after_first(drv, step):
+    """``step`` with a GCM boundary after its first call: the range
+    checks' synchronisation (``step.check()``), then the next forcing."""
+    calls = [0]
+
+    def run(state):
+        if calls[0] == 1:
+            step.check()
+            state = drv._forcing(state)
+        calls[0] += 1
+        return step(state)
+    return run
+
+
+def compiled(drv, state, label: str):
+    """The ``--compiled`` report (see the module docstring)."""
+    nsteps = int(round(drv.dt_gcm / drv.dt_crm_phys))
+    step = drv._graphed_single()
+    observe.disable()
+    start = step(step(state))          # the untraced capture, warm
+    observe.enable()
+    step(start)                        # the traced capture
+    observe.disable()
+    ms, snaps = {False: [], True: []}, []
+    for traced in (False, True, True, False):
+        if traced:
+            observe.enable()
+            observe.reset()
+        _, t = timed_steps(boundary_after_first(drv, step),
+                           {k: v.clone() for k, v in start.items()},
+                           nsteps, start["temp"].is_cuda)
+        ms[traced].append(t)
+        if traced:
+            snaps.append(observe.snapshot())
+            observe.disable()
+    off, on = (sum(ms[k]) / 2 for k in (False, True))
+    clock = "CUDA events" if start["temp"].is_cuda else "host clock"
+    print(f"{label}, compiled, {nsteps} steps from one start, a GCM "
+          f"boundary after the first, {clock}: "
+          f"ms/step untraced {ms[False][0]:.3f} {ms[False][1]:.3f}, traced "
+          f"{ms[True][0]:.3f} {ms[True][1]:.3f}: the tracer costs "
+          f"{on - off:+.3f} ms/step ({100 * (on - off) / off:+.2f}%)")
+    last = snaps[-1]
+    print(f"tracer clock: step {last['resolution_ns']} ns, offset to the "
+          f"host's clock +-{last['offset_err_ns'] / 1e3:.1f} us, drift "
+          f"{last['drift_ns'] / 1e3:+.1f} us; timeline entries dropped "
+          f"{last['ring_dropped']}")
+    runs = len(snaps) * nsteps
+    print("span (inside the graph): device ms/step, entries/step")
+    spans = {n: sum(s["spans"][n][0] for s in snaps) for n in last["spans"]}
+    counts = {n: sum(s["spans"][n][1] for s in snaps) for n in last["spans"]}
+    for name in sorted(spans, key=lambda n: -spans[n]):
+        if counts[name]:
+            print(f"  {name:28s} {spans[name] / 1e6 / runs:9.3f} "
+                  f"{counts[name] / runs:7.2f}")
+    top = sum(spans.get(n, 0) for n in ("pam:forcing", "pam:dycore",
+                                        "pam:sponge", "pam:sgs",
+                                        "pam:micro", "pam:rad"))
+    print(f"top-level layers cover {100 * top / spans['pam:step']:.2f}% of "
+          "pam:step")
+    print("loop: trips/step")
+    for name in last["trips"]:
+        n = sum(s["trips"][name] for s in snaps)
+        if n:
+            print(f"  {name:28s} {n / runs:7.2f}")
+    out = sum(outside_ms(s["ring"]) for s in snaps) / runs
+    graph_ms = spans["pam:step"] / 1e6 / runs
+    print(f"outside the graph (timeline gaps between pam:step): {out:.3f} "
+          f"device ms/step; pam:step + outside {graph_ms + out:.3f} against "
+          f"{on:.3f} by {clock}")
+    print("widest gaps outside the graph: device ms, at ms from the run's "
+          "first replay, the host span over most of it")
+    gaps = sorted(((g, i + 1) for i, s in enumerate(snaps)
+                   for g in widest_gaps(s)), reverse=True)[:GAPS]
+    for (gap, at, host, share), run in gaps:
+        over = f"{host} ({100 * share:.0f}%)" if host else "no host span"
+        print(f"  traced run {run}: {gap:8.3f} at {at:10.3f}  {over}")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--nens", type=int, default=128)
@@ -167,6 +299,8 @@ def main(argv=None):
     ap.add_argument("--dycore", choices=("spam", "awfl"), default="spam")
     ap.add_argument("--grid3d", action="store_true",
                     help="the 32x32x50 grid of chip_smoke.py phase 15c")
+    ap.add_argument("--compiled", action="store_true",
+                    help="the compiled step, through the program's tracer")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_step: torch.cuda.is_available() is false")
@@ -179,13 +313,17 @@ def main(argv=None):
                                      **(FULL3D if args.grid3d else FULL))
     state = gcm_forcing.compute_gcm_forcing_tendencies(drv.coupler, state,
                                                        drv.dt_gcm)
+    label = (f"{args.dycore} {args.micro}+{args.sgs} "
+             f"{'32x32x50 ' if args.grid3d else ''}nens {args.nens} "
+             f"{args.dtype}")
+    if args.compiled:
+        compiled(drv, state, label)
+        return
     for _ in range(WARMUP):
         state = drv.crm_phys_step(state)
     cycles = AwflDycore.timestep.cycles
     state, ms = timed_steps(drv.crm_phys_step, state, STEPS)
-    print(f"{args.dycore} {args.micro}+{args.sgs} "
-          f"{'32x32x50 ' if args.grid3d else ''}nens {args.nens} "
-          f"{args.dtype}, unprofiled {STEPS} steps: "
+    print(f"{label}, unprofiled {STEPS} steps: "
           f"ms/step (CUDA events) {ms:.3f}")
     if args.dycore == "awfl":
         print(f"AWFL sub-cycles per step: "

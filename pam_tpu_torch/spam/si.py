@@ -31,12 +31,12 @@ from typing import Any
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..ops import dft
 from ..ops.tridiag import pcr, thomas, use_pcr
 from ..parallel import comm
 from ..parallel.mesh import per_member
+from ..utils import observe
 from . import operators as op
 from .testcases import saturation_vapor_pressure
 from .thermo import ConstantKappaVirtualPottemp, IdealGasPottemp
@@ -582,10 +582,10 @@ def _newton_update(tend, linsys, dens, v, w, geop, dt, res, xn, pts, wts,
     """One quasi-Newton iteration (SI_Newton.h:60-106): solve, update xn,
     evaluate the discrete gradient between (dens, v, w) and xn, return
     (xn, new residual)."""
-    with record_function("pam:si.solve"):
+    with observe.span("pam:si.solve"):
         sol = linsys.solve(*res)
     xn = tuple(a + b for a, b in zip(xn, sol))
-    with record_function("pam:si.discrete_gradient"):
+    with observe.span("pam:si.discrete_gradient"):
         if two_point:
             Fa, FWa, Ba = two_point_discrete_gradient(tend, (dens, v, w),
                                                       xn, geop)
@@ -593,7 +593,7 @@ def _newton_update(tend, linsys, dens, v, w, geop, dt, res, xn, pts, wts,
             Fa, FWa, Ba = _discrete_gradient(tend, (dens, v, w), xn, geop,
                                              pts, wts)
     xm = tuple(0.5 * (a + b) for a, b in zip((dens, v, w), xn))
-    with record_function("pam:si.symplectic"):
+    with observe.span("pam:si.symplectic"):
         dxd, dxv, dxw = _apply_symplectic_full(tend, xm, Fa, FWa, Ba, dt)
     res = (dens - xn[0] - dt * dxd, v - xn[1] - dt * dxv,
            w - xn[2] - dt * dxw)
@@ -609,14 +609,14 @@ def si_step(tend, linsys, dens, v, w, geop, dt, max_iters: int = 3,
     quadrature (si_two_point_discrete_gradient, params.h:158; off by
     default, as in the reference)."""
     pts, wts = _quadrature(nquad)
-    with record_function("pam:si.compute_rhs"):
+    with observe.span("pam:si.compute_rhs"):
         dxd, dxv, dxw = tend.compute_rhs(dens, v, w, geop, dt)
     xn = (dens, v, w)
     res = (-dt * dxd, -dt * dxv, -dt * dxw)
     for _ in range(max_iters - 1):
         xn, res = _newton_update(tend, linsys, dens, v, w, geop, dt, res, xn,
                                  pts, wts, two_point)
-    with record_function("pam:si.solve"):
+    with observe.span("pam:si.solve"):
         sol = linsys.solve(*res)
     return tuple(a + b for a, b in zip(xn, sol))
 

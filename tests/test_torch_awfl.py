@@ -814,8 +814,9 @@ def test_awfl_step_emits_its_spans():
     for e in prof.events():
         if e.name.startswith("pam:"):
             counts[e.name] = counts.get(e.name, 0) + 1
-    assert counts == {"pam:forcing": 1, "pam:dycore": 1, "pam:sponge": 1,
-                      "pam:micro": 1, "pam:awfl.tendencies": 3 * cycles,
+    assert counts == {"pam:step": 1, "pam:forcing": 1, "pam:dycore": 1,
+                      "pam:sponge": 1, "pam:micro": 1,
+                      "pam:awfl.tendencies": 3 * cycles,
                       "pam:awfl.flux_x": 3 * cycles,
                       "pam:awfl.flux_z": 3 * cycles,
                       "pam:awfl.fct": 3 * cycles}

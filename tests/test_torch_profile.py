@@ -16,7 +16,7 @@ from pam_tpu_torch.profile_step import union_us
 
 torch.set_num_threads(1)
 
-SPANS = {"pam:forcing", "pam:dycore", "pam:sponge", "pam:micro",
+SPANS = {"pam:step", "pam:forcing", "pam:dycore", "pam:sponge", "pam:micro",
          "pam:si.compute_rhs", "pam:si.solve", "pam:si.discrete_gradient",
          "pam:si.symplectic"}
 

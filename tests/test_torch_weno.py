@@ -346,7 +346,8 @@ def test_build_key_changes_with_a_header(tmp_path):
     assert sorted(f.name for f in _cuda.CSRC.glob("*.cuh")) == [
         "p3_tables.cuh", "weno5.cuh"]
     assert {s.name for s in _cuda._sources()} == {
-        "awfl_flux.cu", "graph_while.cu", "p3_part2.cu", "weno_x.cu"}
+        "awfl_flux.cu", "graph_while.cu", "p3_part2.cu", "trace_stamp.cu",
+        "weno_x.cu"}
     for name in ("awfl_flux.cu", "weno_x.cu"):
         assert '#include "weno5.cuh"' in (_cuda.CSRC / name).read_text()
     assert '#include "p3_tables.cuh"' in (
