@@ -82,7 +82,11 @@ benchmark route's default rows in phase 18b; launches_pcr, B1's and B4's
 in phase 19b's trajectories; launches_chunked, B1's and B4's in the
 first chunked step of each of phase 20a's two cases; for B1 also
 ms_padded and
-bound_ms_padded, the padded mode at the main path's shape), the line
+bound_ms_padded, the padded mode at the main path's shape; for Z1, the
+z-WENO kernel of the SPAM slab, those of the production density call on
+the configs' levels, every call of phase 3b under calls, its launches in
+phase 13's production run, 6 a step a chunk, and launches_eager phase
+8's), the line
 before it the two WENO
 kernels' times beside those of the kernels they replaced, the last line
 {"ok": true, "device": {...}}. A kernel's time is device time: its
@@ -276,7 +280,8 @@ def ptxas_summary(log):
     out, name = [], "?"
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
-            kernel = next((k for k in ("p3_part2", "awfl_flux", "weno_x")
+            kernel = next((k for k in ("p3_part2", "awfl_flux", "weno_x",
+                                       "weno_z_edges")
                            if k + "_kernel" in ln), "?")
             tail = ln.split(kernel + "_kernel", 1)[-1]
             name = kernel + "/" + ("f64" if tail.startswith("Id") else
@@ -284,6 +289,9 @@ def ptxas_summary(log):
             if kernel == "awfl_flux":   # <T, per-level matrices, along x>
                 name += ("/levels" if tail[2:].startswith("Lb1E") else
                          "/uniform") + ("/x" if "ELb1EE" in tail else "/yz")
+            elif kernel == "weno_z_edges":   # <T, per-level matrices>
+                name += ("/levels" if tail[2:].startswith("Lb1E") else
+                         "/uniform")
         elif "registers" in ln or ("spill" in ln
                                    and " 0 bytes spill stores" not in ln):
             out.append(f"{name}: {ln.split(':', 1)[-1].strip()}")
@@ -335,6 +343,20 @@ def graph_ms(fn, reps, per_graph=20):
 # (cut into segments) and the narrowest row
 B1_CASES = ((32000, 65), (6272, 65), (37, 16), (1001, 65), (9, 5), (7, 6),
             (3, 128), (5, 257), (3, 5000), (1, 3))
+# Z1 (csrc/weno_z.cu) at the benchmark cells' calls, nens 128 on the
+# configs' 50 build_zint levels: (case, leading shape, levels, dtype); the
+# densities (ndens, 128, 50 + 4, 65) and the PV (128, 49 + 4, 65), whose
+# rows are strided as the model slices them; production's twelve
+# densities in float32, Kessler's five in float64
+Z1_CASES = (("production densities", (12, 128), 50, torch.float32),
+            ("production PV", (128,), 49, torch.float32),
+            ("Kessler densities", (5, 128), 50, torch.float64),
+            ("Kessler PV", (128,), 49, torch.float64))
+Z1_NX = 65
+Z1_DTYPE = {case: dtype for case, _, _, dtype in Z1_CASES}
+# Z1 calls per SPAM+SI step: densities and PV in each of the three
+# symplectic evaluations (spam/tendencies.py::recons)
+Z1_CALLS_PER_STEP = 6
 
 
 def phase_kernel(weno, weno_x):
@@ -363,6 +385,60 @@ def phase_kernel(weno, weno_x):
                     cuda_ms(lambda: weno_x.weno_edges_x_reference(f, tb),
                             20))
     return errs, timing
+
+
+def phase_z1(weno, weno_z, build_zint):
+    """Z1 through the route the model takes (spam/tendencies.py::
+    _edge_recon_z) at Z1_CASES, on the uniform tables and on the per-level
+    matrices of the configs' levels (packed as the tendencies pack them),
+    against weno_z.weno_edges_z_reference at TOL, one launch a call;
+    returns {(case, grid): (kernel ms by graph replay, kernel ms by eager
+    launches, plain ms, (bound ms, bound by), max abs err, shape)}."""
+    from pam_tpu_torch.spam import tendencies as ttend
+    from pam_tpu_torch.spam.geometry import ExtrudedGeometry
+    zint = build_zint({"crm_nz": 50, "zlen": 20000.0})
+    out = {}
+    for case, lead, nlev, dtype in Z1_CASES:
+        geom = ExtrudedGeometry.build(Z1_NX, zint, 128000.0, 128, dtype,
+                                      "cuda")
+        tend = ttend.SpamTendencies(geom=geom, varset=None, thermo=None)
+        levels = (tend.per_level_d, tend.packed_d) if nlev == 50 else (
+            tend.per_level_q, tend.packed_q)
+        check(levels[1] is not None, f"Z1 {case}: no packed matrices on "
+              "the configs' levels")
+        rows = int(np.prod(lead))
+        cut = 1 if nlev == 49 else 0      # the PV's rows strided
+        f = field(rows * (nlev + 4 + cut), Z1_NX, dtype, seed=rows + nlev)
+        f = f.reshape(lead + (nlev + 4 + cut, Z1_NX))[..., cut:, :]
+        tb = weno.weno_tables(5, dtype)
+        for grid, (pl, packed) in (("uniform", (None, None)),
+                                   ("per-level", levels)):
+            route = lambda: ttend._edge_recon_z(f, tb, nlev, per_level=pl,
+                                                packed=packed)
+            before = weno_z.weno_edges_z_cuda.launches
+            got = route()
+            torch.cuda.synchronize()
+            check(weno_z.weno_edges_z_cuda.launches == before + 1,
+                  f"Z1 {case} {grid}: the route did not launch the kernel "
+                  "once")
+            ref = weno_z.weno_edges_z_reference(f, tb, nlev, pl)
+            err = 0.0
+            for r, g in zip(ref, got):
+                abs_err = float((r - g).abs().max())
+                rel = abs_err / max(float(r.abs().max()), 1e-300)
+                check(rel < TOL[dtype], f"Z1 {case} {grid} {name_of(dtype)}"
+                      f": rel err {rel:.3e}")
+                err = max(err, abs_err)
+            out[(case, grid)] = (
+                graph_ms(route, 400), cuda_ms(route, 200),
+                cuda_ms(lambda: weno_z.weno_edges_z_reference(
+                    f, tb, nlev, pl), 10),
+                bound_ms(*weno_z.weno_z_work(rows, nlev, Z1_NX,
+                                             f.element_size(), tb), dtype),
+                err, (rows, nlev + 4, Z1_NX))
+            del got, ref
+        del f, tend, geom
+    return out
 
 
 def b4_beyond(ref, got, tol):
@@ -780,6 +856,9 @@ def run_config(standalone, mmf, counters, name, tmp, eager=False,
             if dycore == "spam" else 0,
             "p3_part2": nsteps * n_chunks if p3 else 0,
             "awfl_flux": FLUX_CALLS_PER_CYCLE * counts["sub_cycles"]}
+    if "weno_z" in counts:
+        want["weno_z"] = (Z1_CALLS_PER_STEP * nsteps * n_chunks
+                          if dycore == "spam" else 0)
     check(all(counts[k] == v for k, v in want.items())
           and (dycore == "spam") == (counts["sub_cycles"] == 0),
           f"{tag}: launches {counts}, expected {want}")
@@ -2779,7 +2858,7 @@ def main():
     from pam_tpu_torch.modules import gcm_forcing
     from pam_tpu_torch.profile_step import cards
     from pam_tpu_torch.dycore.awfl import AwflDycore
-    from pam_tpu_torch.ops import awfl_flux, p3_part2, weno, weno_x
+    from pam_tpu_torch.ops import awfl_flux, p3_part2, weno, weno_x, weno_z
     from pam_tpu_torch.physics.p3 import main as p3main, sedimentation
     from pam_tpu_torch.utils import gw_verification
     sys.path.insert(0, os.path.join(ROOT, "tools"))
@@ -2791,6 +2870,7 @@ def main():
           f"device {torch.cuda.get_device_name(0)} "
           f"count {torch.cuda.device_count()}", flush=True)
     weno_count = (weno_x.weno_edges_x_cuda, "launches")
+    z_count = (weno_z.weno_edges_z_cuda, "launches")
     b4_count = (p3_part2.p3_part2_cuda, "launches")
     sed_count = (sedimentation.combined_sedimentation, "rounds")
     b3_count = (awfl_flux.flux_direction_cuda, "launches")
@@ -2816,6 +2896,17 @@ def main():
                     f"({b1_bounds[d][0] * 1e3:.2f} by {b1_bounds[d][1]})"
                     for d, (k, h, p) in timing.items()), flush=True)
 
+    # 3b. Z1 (z-WENO kernel) vs plain on the card, through the model's route
+    z1 = phase_z1(weno, weno_z, standalone.build_zint)
+    print("phase 3b Z1 vs plain through _edge_recon_z at the cells' calls "
+          "(nens 128, the configs' levels): us/call kernel by graph replay "
+          "(by eager launches) / plain (bound, by), max abs err: " + "; ".join(
+              f"{case} {shape} {name_of(Z1_DTYPE[case])} {grid} "
+              f"{k * 1e3:.2f} ({h * 1e3:.2f}) / {p * 1e3:.2f} "
+              f"({b[0] * 1e3:.2f}, {b[1]}), {e:.3e}"
+              for (case, grid), (k, h, p, b, e, shape) in z1.items()),
+          flush=True)
+
     # 4. Kessler golden trajectory on the card, f64, through the kernel
     weno_x.weno_edges_x_cuda.launches = 0
     with thomas_route():
@@ -2833,9 +2924,10 @@ def main():
                                 (1024, torch.float32, 5),
                                 (128, torch.float64, 5)):
         line, counts = full_width(setup_supercell_mmf, gcm_forcing,
-                                  {"weno_x": weno_count}, nens, dtype,
-                                  nsteps, WATER)
-        check(counts["weno_x"] == nsteps * WENO_CALLS_PER_STEP,
+                                  {"weno_x": weno_count, "weno_z": z_count},
+                                  nens, dtype, nsteps, WATER)
+        check(counts["weno_x"] == nsteps * WENO_CALLS_PER_STEP
+              and counts["weno_z"] == nsteps * Z1_CALLS_PER_STEP,
               f"phase 5: {counts} in {nsteps} steps")
         print(f"phase 5 {line}", flush=True)
 
@@ -2887,9 +2979,10 @@ def main():
         line, counts = full_width(
             setup_supercell_mmf, gcm_forcing,
             {"weno_x": weno_count, "p3_part2": b4_count,
-             "sed_rounds": sed_count}, nens, dtype, nsteps, P3_WATER,
-            micro="p3", sgs="shoc")
+             "sed_rounds": sed_count, "weno_z": z_count}, nens, dtype,
+            nsteps, P3_WATER, micro="p3", sgs="shoc")
         check(counts["weno_x"] == nsteps * WENO_CALLS_PER_STEP
+              and counts["weno_z"] == nsteps * Z1_CALLS_PER_STEP
               and counts["p3_part2"] == nsteps,
               f"phase 8: {counts} in {nsteps} steps")
         if main_counts is None:
@@ -2961,15 +3054,20 @@ def main():
     state = state_from_numpy(dict(np.load(os.path.join(
         GOLDEN, "mmf_pamc_small_init.npz"))), "cuda", torch.float64)
     weno_x.weno_edges_x_cuda.launches = 0
+    weno_z.weno_edges_z_cuda.launches = 0
     with thomas_route():
         for _ in range(10):
             state = drv.crm_phys_step(state)
-    check(weno_x.weno_edges_x_cuda.launches == 10 * WENO_CALLS_PER_STEP,
-          f"phase 12: {weno_x.weno_edges_x_cuda.launches} x-WENO launches")
+    check(weno_x.weno_edges_x_cuda.launches == 10 * WENO_CALLS_PER_STEP
+          and weno_z.weno_edges_z_cuda.launches == 10 * Z1_CALLS_PER_STEP,
+          f"phase 12: {weno_x.weno_edges_x_cuda.launches} x-WENO and "
+          f"{weno_z.weno_edges_z_cuda.launches} Z1 launches")
     gerr = golden_errors(state, "mmf_pamc_small", {})
     operr = golden_errors(state, "mmf_pamc_small_opbyop", {})
     print(f"phase 12 stretched SPAM f64 10 steps, "
-          f"{weno_x.weno_edges_x_cuda.launches} x-WENO launches: max rel err "
+          f"{weno_x.weno_edges_x_cuda.launches} x-WENO and "
+          f"{weno_z.weno_edges_z_cuda.launches} Z1 launches (per-level "
+          "matrices): max rel err "
           "vs pam_tpu jitted " + ", ".join(f"{k} {e:.2e}"
                                             for k, e in gerr.items()) +
           "; vs op by op " + ", ".join(f"{k} {e:.2e}"
@@ -2980,12 +3078,15 @@ def main():
     # 13. the four standalone configs through run_mmf at 65x1x50, each as
     #     its file sets it (nens, dtype, dycore, physics, ens_chunk, 2 GCM
     #     steps of 45 CRM steps), each with the counters at 0 just before it
+    z1_launches = {}
     with tempfile.TemporaryDirectory() as tmp, thomas_route():
         for name in MMF_CONFIGS:
-            line, _, stats = run_config(
+            line, counts, stats = run_config(
                 standalone, mmf,
                 {"weno_x": weno_count, "p3_part2": b4_count,
-                 "awfl_flux": b3_count, "sub_cycles": cycle_count}, name, tmp)
+                 "awfl_flux": b3_count, "sub_cycles": cycle_count,
+                 "weno_z": z_count}, name, tmp)
+            z1_launches[name] = counts["weno_z"]
             if name == "production":
                 production = (line, stats)
             print(f"phase 13 run_mmf on the compiled route {line}",
@@ -3022,6 +3123,9 @@ def main():
     b32, _, bp32 = b4_timing[("float32", 0.5)]
     b1_bound = b1_bounds["float32"]
     b4_bound = b4_bounds["float32"]
+    # Z1: the production density call on the configs' levels, the
+    # largest of the main path's six a chunk step, the rest beside it
+    z1_main = z1[("production densities", "per-level")]
     # B3: the z call, the slower half of the main path's launches, under
     # the contract's keys, and the x call beside it
     z32, _, zp32, z_bytes, z_flops = b3_timing[("float32", "z")]
@@ -3080,7 +3184,22 @@ def main():
          "ms_x": x32, "plain_ms_x": xp32,
          "bound_ms_x": bound_ms(x_bytes, x_flops, torch.float32)[0],
          "launches_sharded": sharded["awfl_flux"],
-         "launches_bench": bench_launches["awfl_flux"]}]}))
+         "launches_bench": bench_launches["awfl_flux"]},
+        {"name": "weno_z", "route": "cuda",
+         "source": "pam_tpu_torch/csrc/weno_z.cu",
+         "replaces": "pam_tpu/spam/tendencies.py:61 (XLA-fused, no TPU "
+                     "kernel)",
+         "launches": z1_launches["production"],
+         "max_abs_err": max(r[4] for r in z1.values()),
+         "ms": z1_main[0], "plain_ms": z1_main[2],
+         "bound_ms": z1_main[3][0], "bound_by": z1_main[3][1],
+         "library_ms": None,
+         "calls": {f"{case} {grid}": {
+             "shape": list(shape), "ms": k, "ms_eager": h, "plain_ms": p,
+             "bound_ms": b[0], "max_abs_err": e}
+             for (case, grid), (k, h, p, b, e, shape) in z1.items()},
+         "launches_pamc": z1_launches["pamc"],
+         "launches_eager": main_counts["weno_z"]}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -5,7 +5,7 @@ shared library of its own with a plain C interface, loaded with ctypes;
 the compilers of all sources run side by side. The build happens at first
 use, into ``_build/`` beside this file, under a name keyed on a hash of
 the source, of every header ``csrc/*.cuh`` (``csrc/weno5.cuh`` is the
-limiter that ``weno_x.cu`` and ``awfl_flux.cu`` include,
+limiter that ``weno_x.cu``, ``weno_z.cu`` and ``awfl_flux.cu`` include,
 ``csrc/p3_tables.cuh`` the table lookups of ``p3_part2.cu``) and of the
 flags (``csrc/graph_while.cu`` is no kernel of the TPU's but the capture
 of a CUDA graph with WHILE nodes that ``ops/graph.py`` drives,
@@ -124,7 +124,7 @@ def library() -> types.SimpleNamespace:
         fn.argtypes, fn.restype = argtypes, i32
         setattr(lib, name, fn)
 
-    from .ops import awfl_flux, p3_part2, weno5, weno_x
+    from .ops import awfl_flux, p3_part2, weno5, weno_x, weno_z
     cdll = ctypes.CDLL(str(paths["weno_x.cu"]))
     for name in ("pam_weno_x_f32", "pam_weno_x_f64", "pam_weno_x_padded_f32",
                  "pam_weno_x_padded_f64"):
@@ -137,6 +137,14 @@ def library() -> types.SimpleNamespace:
     if lib.pam_weno_x_tile() != weno_x.TILE:
         raise RuntimeError("csrc/weno_x.cu has another tile size than "
                            "ops/weno_x.py")
+    cdll = ctypes.CDLL(str(paths["weno_z.cu"]))
+    for name in ("pam_weno_z_f32", "pam_weno_z_f64"):
+        bind(cdll, name, [ptr, ptr, ptr, i64, i64, i32, i32, ptr, i64, ptr,
+                          ptr])
+    bind(cdll, "pam_weno_z_layout", [])
+    if lib.pam_weno_z_layout() != weno5.NTAB * 1000 + weno_z.NMAT:
+        raise RuntimeError("csrc/weno_z.cu expects another table or "
+                           "per-level layout than ops/weno_z.py passes")
     cdll = ctypes.CDLL(str(paths["p3_part2.cu"]))
     for name in ("pam_p3_part2_f32", "pam_p3_part2_f64"):
         bind(cdll, name, [ptr, ptr, ptr, i64, ctypes.c_double, i32, ptr,

@@ -1,9 +1,11 @@
 """Times of the CUDA kernels on the card, at the main path's shapes: the
 periodic-x edge reconstruction (csrc/weno_x.cu) at (32000, 65), the
 AWFL directional flux (csrc/awfl_flux.cu) at 65x1x50, nens 128, three
-tracers, in x, in z and in z with a matrix set per member, and P3 part
+tracers, in x, in z and in z with a matrix set per member, P3 part
 2 (csrc/p3_part2.cu) at (50, 65, 128) with cloud, rain and ice each at
-half of the points and at 2% of them; float32 and float64; microseconds
+half of the points and at 2% of them, and the SPAM slab's vertical edge
+reconstruction (csrc/weno_z.cu) at the benchmark cells' calls; float32
+and float64; microseconds
 of device time per call, the launches replayed from a CUDA graph
 between two CUDA events.
 
@@ -124,7 +126,47 @@ def measure(root, tiles, reps):
                         prim, trac, pres, axis, tb, levels,
                         faces_per_tile=tf), reps)
         out.update(b4_times(torch, dtype, tag, reps))
+        out.update(z_times(torch, dtype, tag, reps))
     return {k: v * 1e3 for k, v in out.items()}
+
+
+def z_times(torch, dtype, tag, reps):
+    """The vertical edge reconstruction (csrc/weno_z.cu) at the calls of
+    the benchmark's cells, the configs' 50 stretched levels, nens 128:
+    densities (12 in float32 as production has, 5 in float64 as PAM-C
+    Kessler) and PV, on the per-level matrices, on the uniform tables,
+    and the plain version of the densities' call. Nothing where the
+    checkout has no such kernel."""
+    import numpy as np
+    try:
+        from pam_tpu_torch.ops import weno, weno_z
+    except ImportError:
+        return {}
+    from pam_tpu_torch.driver.standalone import build_zint
+    from pam_tpu_torch.spam.geometry import ExtrudedGeometry
+    from pam_tpu_torch.spam.tendencies import SpamTendencies
+    geom = ExtrudedGeometry.build(65, build_zint({"crm_nz": 50}), 128000.0,
+                                  128, dtype, "cuda")
+    tend = SpamTendencies(geom=geom, varset=None, thermo=None)
+    tb = weno.weno_tables(5, dtype)
+    rng = np.random.default_rng(0)
+    ndens = 12 if dtype == torch.float32 else 5
+    out = {}
+    for case, rows, nlev, pl, packed in (
+            ("dens", ndens * 128, 50, tend.per_level_d, tend.packed_d),
+            ("pv", 128, 49, tend.per_level_q, tend.packed_q)):
+        f = torch.as_tensor(rng.standard_normal((rows, nlev + 4, 65)),
+                            dtype=dtype, device="cuda")
+        out[f"Z {case} {tag}"] = cuda_ms(
+            torch, lambda: weno_z.weno_edges_z(f, tb, nlev, pl, packed), reps)
+        if case == "dens":
+            out[f"Z {case} uniform {tag}"] = cuda_ms(
+                torch, lambda: weno_z.weno_edges_z(f, tb, nlev), reps)
+            f3 = f.reshape(ndens, 128, nlev + 4, 65)
+            out[f"Z {case} plain {tag}"] = cuda_ms(
+                torch, lambda: weno_z.weno_edges_z_reference(f3, tb, nlev, pl),
+                max(reps // 20, 20))
+    return out
 
 
 def b4_times(torch, dtype, tag, reps):

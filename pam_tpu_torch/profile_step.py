@@ -70,7 +70,8 @@ FULL3D = dict(FULL, nx=32, ny=32, xlen=64000.0, ylen=64000.0)
 DTYPES = {"f32": torch.float32, "f64": torch.float64}
 WARMUP, STEPS, TOP = 3, 5, 12
 GAPS = 5   # the widest gaps between replays that --compiled names
-OWN_KERNELS = ("weno_x_kernel", "p3_part2_kernel", "awfl_flux_kernel")
+OWN_KERNELS = ("weno_x_kernel", "weno_z_edges_kernel", "p3_part2_kernel",
+               "awfl_flux_kernel")
 
 
 def cards() -> list:

@@ -6,8 +6,9 @@ HEAVISIDE or TANH upwinding, energy-conserving PV fluxes, Zalesak FCT for
 positive densities, optional diffusion; the compile-time defaults are
 src/common.h:62-126).
 
-The x-direction WENO edge reconstruction goes to the hand-written CUDA
-kernel for CUDA tensors (ops/weno_x.py); everything else is plain torch.
+The limited WENO edge reconstructions go to hand-written CUDA kernels for
+CUDA tensors, along x to ops/weno_x.py and along z to ops/weno_z.py;
+everything else is plain torch.
 x is uniform; a stretched vertical grid reconstructs in z with per-level
 matrices (weno_func_recon_variable.h), built once per tendencies object
 in the run's dtype and device. Diffusion is off unless a coefficient is
@@ -26,7 +27,7 @@ import numpy as np
 import torch
 
 from ..ops import recon_matrices as rm
-from ..ops import weno, weno_x
+from ..ops import weno, weno_x, weno_z
 from ..parallel import comm
 from ..parallel.mesh import per_member
 from . import diffusion
@@ -53,22 +54,25 @@ def _edge_recon_x(field, tables, recon_type: str = "wenofunc"):
 
 
 def _edge_recon_z(field_padded, tables, nlev, recon_type: str = "wenofunc",
-                  per_level=None):
+                  per_level=None, packed=None):
     """(bottom_edge, top_edge) of cells 0..nlev-1 from a z-padded array
     (hs on each side). per_level: optional (s2c, wrl) per-level matrices
     of a stretched grid with leading matrix dims and trailing (nens, nlev,
     1) dims (SpamTendencies.vert_per_level), in place of the uniform
-    tables' (pam_tpu/spam/tendencies.py:61-88)."""
-    s2c, wrl, tvh, tvl, c2g, idl, sigma = tables
-    ord = s2c.shape[-1]
-    sten = [field_padded[..., s:s + nlev, :] for s in range(ord)]
-    if per_level is not None:
-        s2c, wrl = per_level
+    tables' (pam_tpu/spam/tendencies.py:61-88); packed: the same matrices
+    as the CUDA kernel reads them (weno_z.pack_level_matrices). The
+    limited reconstruction of a CUDA tensor is the kernel
+    (ops/weno_z.py)."""
     if recon_type == "cfv":
+        s2c, c2g = tables[0], tables[4]
+        ord = s2c.shape[-1]
+        sten = [field_padded[..., s:s + nlev, :] for s in range(ord)]
+        if per_level is not None:
+            s2c = per_level[0]
         aw = weno.cfv_coefs_list(sten, s2c)
         return (weno._eval_edge_list(aw, c2g[:, 0]),
                 weno._eval_edge_list(aw, c2g[:, 1]))
-    return weno.weno_edges_list(sten, s2c, wrl, tvh, tvl, idl, sigma, c2g)
+    return weno_z.weno_edges_z(field_padded, tables, nlev, per_level, packed)
 
 
 def _upwind_x(left, right, flux, utype: str = "heaviside",
@@ -114,6 +118,18 @@ def level_matrices(geom, dz, ord: int, nh: int = 1):
     return to(s2c, 2), to(wrl, 3)
 
 
+def packed_level_matrices(geom, dz):
+    """The order-5 level matrices of :func:`level_matrices` as
+    ``csrc/weno_z.cu`` reads them: (nens, nlev, weno_z.NMAT) in the
+    geometry's dtype and device, or (1, nlev, NMAT) where every member
+    has the same column of thicknesses dz (nens, nlev)."""
+    cols, inv = np.unique(dz, axis=0, return_inverse=True)
+    s2c, wrl = rm.mirror_recon_matrices(cols, weno_z.ORD, iface=True)
+    if len(cols) > 1:
+        s2c, wrl = s2c[inv.reshape(-1)], wrl[inv.reshape(-1)]
+    return weno_z.pack_level_matrices(s2c, wrl, geom.dtype, geom.device)
+
+
 @dataclasses.dataclass(frozen=True, eq=False)
 class SpamTendencies:
     """Static config + reference-state tensors of the extruded CE / MCE
@@ -152,6 +168,10 @@ class SpamTendencies:
     per_level_d: Any = per_member(-3, default=None)
     # primal layers, thickness dz_p
     per_level_q: Any = per_member(-3, default=None)
+    # the same, packed as the CUDA kernel reads them (packed_level_matrices;
+    # order 5 on a CUDA device only): (nens or 1, nlev, weno_z.NMAT)
+    packed_d: Any = per_member(0, default=None)
+    packed_q: Any = per_member(0, default=None)
 
     def __post_init__(self):
         if not self.geom.uniform_vertical and self.per_level_d is None:
@@ -159,6 +179,14 @@ class SpamTendencies:
                                self._level_matrices(self.geom.dz_d))
             object.__setattr__(self, "per_level_q",
                                self._level_matrices(self.geom.dz_p))
+            if (self.ord == weno_z.ORD
+                    and self.geom.device.type == "cuda"):
+                object.__setattr__(self, "packed_d",
+                                   packed_level_matrices(self.geom,
+                                                         self.geom.dz_d))
+                object.__setattr__(self, "packed_q",
+                                   packed_level_matrices(self.geom,
+                                                         self.geom.dz_p))
 
     def _level_matrices(self, dz):
         return level_matrices(self.geom, dz, self.ord)
@@ -259,7 +287,8 @@ class SpamTendencies:
         # vertical density recon at dual interfaces
         db, dt_ = _edge_recon_z(mirror_iface(dens0, hs), tb, g.nz,
                                 self.reconstruction_type,
-                                per_level=self.vert_per_level())
+                                per_level=self.vert_per_level(),
+                                packed=self.packed_d)
         vert_int = _upwind_z(db, dt_, FW[None, :, 1:-1, :],
                              self.dual_upwind_type, self.tanh_upwind_coeff,
                              g.d_area_n0())
@@ -279,7 +308,8 @@ class SpamTendencies:
         qhzrecon = torch.where(FTW >= 0, qr_, rollm(ql_, 1))
         qhz_pad = mirror_iface(qhz, hs)[..., 1:g.nz + 2 * hs, :]
         qb, qt = _edge_recon_z(qhz_pad, tb, g.nz - 1,
-                               per_level=self.vert_per_level_q())
+                               per_level=self.vert_per_level_q(),
+                               packed=self.packed_q)
         # straight vert recon at v-level kv from primal-layer cells kv-1
         # (top) and kv (bottom), upwinded by -FT (recon.h:581-585)
         cand0 = mirror_layer(qt, 1)[..., :g.nz, :]

@@ -45,7 +45,7 @@ import torch
 import pam_tpu_torch.driver.mmf as tmmf
 from pam_tpu_torch.dycore.awfl import AwflDycore
 from pam_tpu_torch.modules import gcm_forcing as tforcing
-from pam_tpu_torch.ops import awfl_flux, graph, p3_part2, weno_x
+from pam_tpu_torch.ops import awfl_flux, graph, p3_part2, weno_x, weno_z
 from pam_tpu_torch.physics import kessler as tkessler
 from pam_tpu_torch.physics.p3 import sedimentation as tsed
 
@@ -65,6 +65,7 @@ COUNTERS = ((tkessler.kessler_column, "rainsplit"),
             (tsed.combined_sedimentation, "rounds"),
             (weno_x.weno_edges_x_cuda, "launches"),
             (weno_x.weno_edges_x_cuda, "launches_padded"),
+            (weno_z.weno_edges_z_cuda, "launches"),
             (p3_part2.p3_part2_cuda, "launches"),
             (awfl_flux.flux_direction_cuda, "launches"))
 
@@ -324,6 +325,33 @@ def test_run_in_chunks_compiled_equals_eager(name, dtype):
             c = drv._crm_phys_step_single(c)
         chunks[i] = c
     assert not _same(tmmf._join_ens(chunks), got)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("grid", ["uniform", "stretched"])
+def test_a_replay_launches_six_z_reconstructions(grid):
+    """A SPAM+SI step makes three symplectic evaluations, each with two
+    vertical reconstructions (densities, PV): one replay of the compiled
+    step counts 6 launches of the z kernel, on either route of its
+    matrices, and as many of B1."""
+    _cuda()
+    from pam_tpu_torch.driver.standalone import build_zint
+    zint = (None if grid == "uniform"
+            else build_zint({"crm_nz": SMALL["nz"], "zlen": SMALL["zlen"]}))
+    drv, st = tmmf.setup_supercell_mmf(nens=2, **SMALL, **STACKS["kessler"],
+                                       zint=zint, dtype=torch.float32,
+                                       device="cuda")
+    tend = drv.dycore.tend
+    assert (tend.packed_d is None) == (grid == "uniform")
+    st = tforcing.compute_gcm_forcing_tendencies(drv.coupler, st, drv.dt_gcm)
+    step = drv._graphed_single()
+    st = step(st)           # capture
+    weno_z.weno_edges_z_cuda.launches = 0
+    weno_x.weno_edges_x_cuda.launches = 0
+    st = step(st)
+    step.check()
+    assert weno_z.weno_edges_z_cuda.launches == 6
+    assert weno_x.weno_edges_x_cuda.launches == 6
 
 
 @pytest.mark.gpu

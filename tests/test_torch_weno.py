@@ -99,8 +99,8 @@ def test_reference_matches_pallas_weno_pallas(dtype, nx):
 
 @pytest.mark.parametrize("recon_type", ["cfv", "wenofunc"])
 def test_tendencies_edge_recons_match_jax(recon_type):
-    """The port's _edge_recon_x and _edge_recon_z (z stays plain torch on
-    every device) against pam_tpu's, limited and centred (CFV)."""
+    """The port's _edge_recon_x and _edge_recon_z (their plain routes, the
+    CPU's) against pam_tpu's, limited and centred (CFV)."""
     import jax.numpy as jnp
     from pam_tpu.ops import weno as jweno
     from pam_tpu.spam import tendencies as jtend
@@ -347,8 +347,8 @@ def test_build_key_changes_with_a_header(tmp_path):
         "p3_tables.cuh", "weno5.cuh"]
     assert {s.name for s in _cuda._sources()} == {
         "awfl_flux.cu", "graph_while.cu", "p3_part2.cu", "trace_stamp.cu",
-        "weno_x.cu"}
-    for name in ("awfl_flux.cu", "weno_x.cu"):
+        "weno_x.cu", "weno_z.cu"}
+    for name in ("awfl_flux.cu", "weno_x.cu", "weno_z.cu"):
         assert '#include "weno5.cuh"' in (_cuda.CSRC / name).read_text()
     assert '#include "p3_tables.cuh"' in (
         _cuda.CSRC / "p3_part2.cu").read_text()
