@@ -1,12 +1,23 @@
-"""The work of the program's two hand-written kernels on the main path,
-from the shapes of their calls, and the published peaks of the card:
-frozen copies of ``pam_tpu_torch/ops/weno_x.py::weno_x_work`` (B1) and of
-the count of P3 part 2 (B4) that ``chip_smoke.py::plain_ops`` made, so a
-roofline share reads the same work whatever implements it.
+"""The work of the program's hand-written kernels on the main path, from
+the shapes of their calls, and the published peaks of the card: frozen
+copies of ``pam_tpu_torch/ops/weno_x.py::weno_x_work`` (B1), of
+``pam_tpu_torch/ops/awfl_flux.py::flux_work`` and ``weno_flops`` (B3)
+and of the count of P3 part 2 (B4) that ``chip_smoke.py::plain_ops``
+made, so a roofline share reads the same work whatever implements it.
 
-A configuration file lists, under ``kernel_calls``, the calls one CRM step
-makes per ensemble member: B1 ``{"rows": r, "nx": n}`` (a call on a chunk
-of m members reconstructs r*m rows of n cells), B4 ``{"points": p}``."""
+A configuration file lists, under ``kernel_calls``, the calls that one
+CRM step makes per ensemble member: B1 ``{"rows": r, "nx": n}`` (a call
+on a chunk of m members reconstructs r*m rows of n cells), B4
+``{"points": p}``. B3, the AWFL dycore's directional flux, runs in the
+acoustic sub-cycles, whose number a step the device decides, so its
+entry lists the calls of one sub-cycle (3 SSPRK3 stages, each the x then
+the z direction): ``{"axis": "x" | "z", "cells": [ny, nz, nx],
+"tracers": t, "matrix_sets": s}``, ``cells`` a member's input, padded
+by 3 cells on each side along ``axis`` (faces: that extent less 5),
+``t`` the tracers fluxed, ``s`` the sets of per-level matrices read (1
+for a z call whose members share their levels, 0 along x), which a
+chunk does not multiply. B3's least time over a stretch is then
+:func:`least_s_per_cycle` times its launches over the calls listed."""
 
 from __future__ import annotations
 
@@ -25,7 +36,14 @@ ITEMSIZE = {"float32": 4, "float64": 8}
 
 # kernel names as the profiler's trace holds them
 B1_KERNEL = "weno_x_kernel"
+B3_KERNEL = "awfl_flux_kernel"
 B4_KERNEL = "p3_part2_kernel"
+
+# B3: the WENO order, and the values of one level's packed matrices
+# (pam_tpu_torch/ops/weno5.py::NMAT: ord*ord + hs**3)
+B3_ORD = 5
+B3_LEVEL_STRIDE = 52
+B3_AXES = {"x": 4, "z": 3}      # axes of (nvar, nens, ny, nz, nx)
 
 # P3 part 2 (B4): 36 arrays read and 28 written, one value a point each;
 # 1,614 elementwise operations a point (the plain version's count at half
@@ -71,6 +89,42 @@ def weno_x_work(rows: int, nx: int, itemsize: int, ord: int = 5,
             rows * nx * (limiter_flops(tables) + 2 * per_edge))
 
 
+def weno_flops(tables) -> int:
+    """Floating-point operations of one limited edge value: the limiter,
+    the weighted sum of the candidates, the evaluation at the edge."""
+    ord = tables[0].shape[-1]
+    hs = (ord + 1) // 2
+    return (limiter_flops(tables)
+            + hs * (2 * hs + 1) + (ord - hs)    # weighted sum of candidates
+            + 2 * ord - 1)                      # evaluation at the edge
+
+
+def b3_work(prim_shape, ntr: int, axis: int, itemsize: int,
+            matrix_sets: int = 0) -> tuple:
+    """(bytes, flops) of one B3 call on a (5, nens, ny, nz, nx) state
+    padded along ``axis``: every input element read once and every
+    output element written once (``matrix_sets`` sets of per-level
+    matrices among the inputs); 4 two-sided and 4 + ntr upwind WENO
+    evaluations per face plus the characteristic split."""
+    tables = weno.weno_tables(B3_ORD, torch.float64)
+    cells = int(np.prod(prim_shape[1:]))
+    faces = cells // prim_shape[axis] * (prim_shape[axis] - B3_ORD)
+    nbytes = itemsize * ((5 + ntr + 1) * cells + (5 + ntr) * faces)
+    nbytes += (itemsize * matrix_sets * B3_LEVEL_STRIDE
+               * (prim_shape[B3_AXES["z"]] - B3_ORD + 1))
+    flops = faces * ((8 + ntr) * weno_flops(tables) + (B3_ORD + 1) + 13
+                     + 2 * (4 + ntr))
+    return nbytes, flops
+
+
+def b3_call_work(call: dict, chunk: int, itemsize: int) -> tuple:
+    """(bytes, flops) of the ``kernel_calls["b3"]`` entry ``call`` on a
+    chunk of ``chunk`` members."""
+    return b3_work([5, chunk] + list(call["cells"]), call["tracers"],
+                   B3_AXES[call["axis"]], itemsize,
+                   call["matrix_sets"])
+
+
 def p3_part2_work(points: int, itemsize: int) -> tuple:
     """(bytes, flops) of one B4 call over ``points`` points."""
     return ((B4_ARRAYS_IN + B4_ARRAYS_OUT) * points * itemsize,
@@ -99,3 +153,13 @@ def least_s_per_step(config: dict, kernel: str, nens: int, chunk: int
             work = p3_part2_work(call["points"] * chunk, size)
         total += least_s(*work, dtype) * (nens // chunk)
     return total
+
+
+def least_s_per_cycle(config: dict, chunk: int) -> float:
+    """The least time of B3's calls in one acoustic sub-cycle of a chunk
+    of ``chunk`` members: every call that ``kernel_calls["b3"]`` lists,
+    once. Over a stretch in which B3 launched n times, B3's least time is
+    this times n over the number of calls listed."""
+    dtype = dtype_name(config)
+    return sum(least_s(*b3_call_work(call, chunk, ITEMSIZE[dtype]), dtype)
+               for call in config["kernel_calls"].get("b3", []))

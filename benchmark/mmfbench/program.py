@@ -127,9 +127,16 @@ def synchronize(system: System):
 
 
 def kernel_launches() -> dict:
-    """The launch counters of the kernels B1 and B4."""
-    from pam_tpu_torch.ops import p3_part2, weno_x
+    """The launch counters of the kernels B1, B3 and B4, read once the
+    card has done the work queued so far: B3 launches in AWFL's acoustic
+    sub-cycles, a WHILE node of the compiled step whose trips the device
+    decides, so the compiled step adds its count on the device (0 where
+    no AWFL step ran)."""
+    from pam_tpu_torch.ops import awfl_flux, p3_part2, weno_x
+    if torch.cuda.is_initialized():
+        torch.cuda.synchronize()
     return {"b1": int(weno_x.weno_edges_x_cuda.launches),
+            "b3": int(awfl_flux.flux_direction_cuda.launches),
             "b4": int(p3_part2.p3_part2_cuda.launches)}
 
 

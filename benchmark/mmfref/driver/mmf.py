@@ -1,5 +1,5 @@
-"""The MMF step of one chunk of CRMs: apply the GCM forcing, the SPAM+SI
-dycore, the sponge, the SGS scheme and the microphysics (ref
+"""The MMF step of one chunk of CRMs: apply the GCM forcing, the dycore
+(SPAM+SI or AWFL), the sponge, the SGS scheme and the microphysics (ref
 standalone/mmf_simplified/driver.cpp:237-272), and the supercell set-up
 of a chunk's driver and state; every loop runs on the host."""
 
@@ -13,6 +13,7 @@ import torch
 from torch.profiler import record_function
 
 from ..core.coupler import Coupler
+from ..dycore.awfl import AwflDycore
 from ..modules import gcm_forcing, sponge
 from ..modules.broadcast import broadcast_initial_gcm_column
 from ..modules.perturb import perturb_temperature
@@ -72,21 +73,22 @@ def setup_supercell_mmf(nx=65, ny=1, nz=50, nens=1, xlen=128000.0,
                         zint=None, dycore_kwargs=None, micro_kwargs=None,
                         state_only=False, device="cuda", noise_dtype=None):
     """The MMF configuration of inputs/input_pamc.yaml from the supercell
-    column, on ``device`` in ``dtype``: the SPAM dycore (PAM-C, MCE_rho,
-    semi-implicit with dt_si = dt_crm_phys/crm_per_phys), with
-    micro="kessler" or "p3" and sgs="none" or "shoc".
+    column, on ``device`` in ``dtype``: dycore="spam" (PAM-C, MCE_rho,
+    semi-implicit with dt_si = dt_crm_phys/crm_per_phys) or "awfl"
+    (PAM-A, acoustically sub-cycled SSPRK3), with micro="kessler" or "p3"
+    and sgs="none" or "shoc".
 
     ``zint``: the nz+1 interface heights, uniform over zlen if None.
     ``perturb_seeds``: one seed per member, np.arange(nens) if None;
     ``noise_dtype``: the dtype the perturbation is drawn in (``dtype`` if
     None).
-    Returns (driver, state); ``state_only=True`` skips the dycore build
-    and returns (None, state) with the same state."""
+    Returns (driver, state); ``state_only=True`` skips the SPAM dycore
+    build and returns (None, state) with the same state."""
     if torch.device(device).type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device={device!r}: torch.cuda.is_available() "
                            "is false; pass device='cpu' to run on the CPU")
-    if dycore != "spam":
-        raise ValueError(f"dycore {dycore!r}: the reference holds SPAM")
+    if dycore not in ("spam", "awfl"):
+        raise ValueError(f"unknown dycore {dycore!r}")
     micro_mod = {"kessler": kessler, "p3": p3}.get(micro)
     if micro_mod is None:
         # pam_tpu accepts "none" and then fails further on, in either
@@ -119,7 +121,12 @@ def setup_supercell_mmf(nx=65, ny=1, nz=50, nens=1, xlen=128000.0,
                                 noise_dtype=noise_dtype)
 
     dyc = None
-    if not state_only:
+    if dycore == "awfl":
+        # built even under state_only: the hydrostatic declaration is part
+        # of the initial state
+        dyc = AwflDycore.build(cpl, np.diff(zint), **(dycore_kwargs or {}))
+        state = dyc.declare_current_profile_as_hydrostatic(state)
+    elif not state_only:
         dyc = SpamDycore.build_coupled(cpl, state, zint,
                                        dt_si=dt_crm_phys / crm_per_phys,
                                        **(dycore_kwargs or {}))

@@ -81,8 +81,11 @@ import numpy as np, torch
 from mmfbench import check, spec
 cell = spec.cell("production.nens512")
 run = dict(cell.config["run"], **{TINY!r})
-ref = check.Reference(run, np.arange(2, dtype=np.uint64), 2, 0, "cpu")
-ref.step(ref.start, boundary=True)
+for dycore in ("spam", "awfl"):
+    ref = check.Reference(dict(run, dycore=dycore),
+                          np.arange(2, dtype=np.uint64), 2, 0, "cpu")
+    ref.step(ref.start, boundary=True)
+assert type(ref.drv.dycore).__module__ == "mmfref.dycore.awfl"
 print(json.dumps(sorted({{m.split(".")[0] for m in sys.modules}})))
 """)
     assert not {"jax", "jaxlib", "flax", "pam_tpu", "pam_tpu_torch"} \
