@@ -270,7 +270,9 @@ class AwflDycore:
         prim = torch.cat([rho[None], dyn[1:] / rho[None]], dim=0)
         trac_prim = tracers / rho[None]
 
-        dyn_p, trac_p, pres_p = self._pad_all(prim, trac_prim, pressure, dz)
+        with observe.span("pam:awfl.halo"):
+            dyn_p, trac_p, pres_p = self._pad_all(prim, trac_prim, pressure,
+                                                  dz)
 
         # per direction (axis, spacing, state flux, tracer flux), in the
         # reference's order x, y, z. In 2-D the reference carries zero y
@@ -360,19 +362,23 @@ class AwflDycore:
 
         # Stage 1
         st, tt = tend(dyn, tracers, tracers, dt)
-        dyn1 = dyn + dt * st
-        trac1 = clamp(tracers + dt * tt)
-        # Stage 2
-        start2 = 0.75 * tracers + 0.25 * trac1
+        with observe.span("pam:awfl.stage"):
+            dyn1 = dyn + dt * st
+            trac1 = clamp(tracers + dt * tt)
+            # Stage 2
+            start2 = 0.75 * tracers + 0.25 * trac1
         st, tt = tend(dyn1, trac1, start2, 0.25 * dt)
-        dyn2 = 0.75 * dyn + 0.25 * dyn1 + 0.25 * dt * st
-        trac2 = clamp(0.75 * tracers + 0.25 * trac1 + 0.25 * dt * tt)
-        # Stage 3
-        start3 = (1.0 / 3.0) * tracers + (2.0 / 3.0) * trac2
+        with observe.span("pam:awfl.stage"):
+            dyn2 = 0.75 * dyn + 0.25 * dyn1 + 0.25 * dt * st
+            trac2 = clamp(0.75 * tracers + 0.25 * trac1 + 0.25 * dt * tt)
+            # Stage 3
+            start3 = (1.0 / 3.0) * tracers + (2.0 / 3.0) * trac2
         st, tt = tend(dyn2, trac2, start3, (2.0 / 3.0) * dt)
-        dyn3 = (1.0 / 3.0) * dyn + (2.0 / 3.0) * dyn2 + (2.0 / 3.0) * dt * st
-        trac3 = clamp((1.0 / 3.0) * tracers + (2.0 / 3.0) * trac2 +
-                      (2.0 / 3.0) * dt * tt)
+        with observe.span("pam:awfl.stage"):
+            dyn3 = ((1.0 / 3.0) * dyn + (2.0 / 3.0) * dyn2
+                    + (2.0 / 3.0) * dt * st)
+            trac3 = clamp((1.0 / 3.0) * tracers + (2.0 / 3.0) * trac2 +
+                          (2.0 / 3.0) * dt * tt)
         return dyn3, trac3
 
     def timestep(self, state, dt_phys):

@@ -16,7 +16,8 @@ step:
   last of them;
 - device and host time of each labelled layer (the ``pam:`` spans of
   ``MmfDriver``, ``si_step`` and ``AwflDycore``: ``pam:awfl.tendencies``
-  and, inside it, ``pam:awfl.flux_x``, ``flux_z`` and ``fct``); host
+  and, inside it, ``pam:awfl.halo``, ``flux_x``, ``flux_z`` and ``fct``,
+  then ``pam:awfl.stage``, each stage's update); host
   times are inflated by the profiler, device times are not; for AWFL
   also the sub-cycles per step;
 - the package's own CUDA kernels (csrc/*.cu): they are launched through

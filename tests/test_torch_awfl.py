@@ -794,8 +794,9 @@ def test_awfl_kessler_shoc_steps_match_jax():
 
 def test_awfl_step_emits_its_spans():
     """One CRM step on AWFL under torch.profiler: pam:dycore holds one
-    pam:awfl.tendencies per SSPRK3 stage and, in each, flux_x, flux_z and
-    fct (2-D: no flux_y); profile_step takes it with --dycore awfl."""
+    pam:awfl.tendencies per SSPRK3 stage and, in each, halo, flux_x,
+    flux_z and fct (2-D: no flux_y), and one pam:awfl.stage per stage's
+    update; profile_step takes it with --dycore awfl."""
     from torch.profiler import ProfilerActivity, profile
     from pam_tpu_torch import profile_step
     from pam_tpu_torch.driver.mmf import setup_supercell_mmf
@@ -817,6 +818,8 @@ def test_awfl_step_emits_its_spans():
     assert counts == {"pam:step": 1, "pam:forcing": 1, "pam:dycore": 1,
                       "pam:sponge": 1, "pam:micro": 1,
                       "pam:awfl.tendencies": 3 * cycles,
+                      "pam:awfl.halo": 3 * cycles,
+                      "pam:awfl.stage": 3 * cycles,
                       "pam:awfl.flux_x": 3 * cycles,
                       "pam:awfl.flux_z": 3 * cycles,
                       "pam:awfl.fct": 3 * cycles}

@@ -16,6 +16,7 @@ from pathlib import Path
 import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile, record_function
+from torch.utils._python_dispatch import TorchDispatchMode
 
 import pam_tpu_torch.driver.mmf as tmmf
 from pam_tpu_torch.ops import graph
@@ -200,6 +201,69 @@ def test_the_eager_step_on_cpu_traced_and_guarded(tracer):
     assert [n for n, _, _ in snap["ring"]].count("pam:step") == 2
 
 
+AWFL = dict(dycore="awfl", micro="kessler")
+AWFL_SPANS = ("pam:awfl.tendencies", "pam:awfl.halo", "pam:awfl.flux_x",
+              "pam:awfl.flux_z", "pam:awfl.fct", "pam:awfl.stage")
+
+
+@pytest.mark.parametrize("guarded", [False, True], ids=["eager", "device"])
+def test_the_awfl_step_traced_once_a_stage(tracer, guarded):
+    """An AWFL step with the tracer on, on the eager route and on the
+    device route of its loop (under the host-read guard): every AWFL span
+    three times an acoustic trip, one tendency evaluation and one stage
+    update each (halo, fluxes and FCT inside the tendencies; tendencies
+    and stage updates inside pam:dycore), none of them on the timeline."""
+    drv, st = _driver(nens=1, stack=AWFL)
+    with graph.no_host_reads() if guarded else contextlib.nullcontext():
+        drv._crm_phys_step_single(st)
+    snap = observe.snapshot()
+    spans, trips = snap["spans"], snap["trips"]["awfl.acoustic"]
+    assert trips > 0
+    for name in AWFL_SPANS:
+        assert spans[name][1] == 3 * trips, name
+    ns = {n: spans[n][0] for n in AWFL_SPANS + ("pam:dycore",)}
+    assert (ns["pam:awfl.halo"] + ns["pam:awfl.flux_x"]
+            + ns["pam:awfl.flux_z"] + ns["pam:awfl.fct"]
+            <= ns["pam:awfl.tendencies"])
+    assert ns["pam:awfl.tendencies"] + ns["pam:awfl.stage"] \
+        <= ns["pam:dycore"]
+    assert not [n for n, _, _ in snap["ring"] if n.startswith("pam:awfl")]
+
+
+class _Ops(TorchDispatchMode):
+    """The operators a block dispatches, in order, less the profiler's
+    own (``record_function``'s, which launch nothing on a card)."""
+
+    def __init__(self):
+        super().__init__()
+        self.ops = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func.namespace != "profiler":
+            self.ops.append(str(func))
+        return func(*args, **(kwargs or {}))
+
+
+def test_spans_off_leave_the_awfl_step_op_for_op(monkeypatch):
+    """With the tracer off the AWFL step on its device route (the route a
+    capture takes) dispatches the same operators, in the same order, as
+    with no span at all, and launches no stamp: so the compiled step
+    captures the same graph, node for node."""
+    assert not observe.active()
+    drv, st = _driver(nens=1, stack=AWFL)
+    n0 = observe.stamp_kernel.launches
+    runs = []
+    for spans in (True, False):
+        if not spans:
+            monkeypatch.setattr(observe, "span",
+                                lambda name: contextlib.nullcontext())
+        with graph.no_host_reads(), _Ops() as rec:
+            drv._crm_phys_step_single(st)
+        runs.append(rec.ops)
+    assert len(runs[0]) > 1000 and runs[0] == runs[1]
+    assert observe.stamp_kernel.launches == n0
+
+
 def test_the_graphed_key_follows_the_tracer():
     drv, _ = _driver()
     key = drv._graphed_single().key
@@ -315,10 +379,11 @@ def _cuda():
 
 
 @pytest.mark.gpu
-def test_an_untraced_capture_and_its_replays_launch_no_stamp():
+@pytest.mark.parametrize("dycore", ["spam", "awfl"])
+def test_an_untraced_capture_and_its_replays_launch_no_stamp(dycore):
     _cuda()
     observe.disable()
-    drv, st = _driver("cuda", stack=dict(dycore="spam", micro="kessler"))
+    drv, st = _driver("cuda", stack=dict(dycore=dycore, micro="kessler"))
     n0 = observe.stamp_kernel.launches
     step = drv._graphed_single()
     for _ in range(3):
