@@ -3,9 +3,12 @@ kernels, hold each against its plain version, reproduce the golden
 trajectories through them, and run the MMF CRM step at the production
 width of inputs/input_pamc.yaml (65x1x50 cells, 128 km x 64 km x 20 km):
 SPAM+SI with Kessler microphysics and with the production P3+SHOC
-physics, and the AWFL dycore with Kessler; then the stretched-grid SPAM
-trajectory (phase 12), the four configs/input_mmf_*.yaml through the
-run_mmf of driver/standalone.py as the files set them (phase 13: the
+physics, and the AWFL dycore with Kessler (its FCT limiter's kernel
+first, phase 9b: against its plain version on the card and on the CPU,
+timed by graph replay beside its bound from bytes); then the
+stretched-grid SPAM trajectory (phase 12), the four
+configs/input_mmf_*.yaml through the run_mmf of driver/standalone.py as
+the files set them (phase 13: the
 production config's ens_chunk "auto" runs its 512 members as 4 chunks of
 128), and the
 idealized x-z SPAM runs through its run_idealized (phase 14): the three
@@ -77,7 +80,8 @@ together; for the AWFL flux those of the z call, the slower half of its
 launches, with the x call's beside them; launches_sharded, one rank's
 launches on its sharded path in phase 17: B1 in the padded mode on the
 x-sharded SPAM+SI step, B4 on the ensemble-sharded production step, B3
-on the x-sharded AWFL step; launches_bench, its launches in the
+on the x-sharded AWFL step (where F1 launches none, checked in 17c);
+launches_bench, its launches in the
 benchmark route's default rows in phase 18b; launches_pcr, B1's and B4's
 in phase 19b's trajectories; launches_chunked, B1's and B4's in the
 first chunked step of each of phase 20a's two cases; for B1 also
@@ -138,6 +142,8 @@ WENO_CALLS_PER_STEP = 6
 B1_PER_RHS = {1: 2, 2: 6}
 # AWFL flux calls per sub-cycle in 2-D: 3 SSPRK3 stages, x and z
 FLUX_CALLS_PER_CYCLE = 6
+# FCT launches per sub-cycle in 2-D: one a stage's tendency
+FCT_PER_CYCLE = 3
 # phase 12: configs/input_mmf_pamc.yaml cut as
 # tools/make_torch_golden_init.py::PAMC_SMALL cuts it
 PAMC_SMALL = dict(crm_nx=16, crm_nz=12, nens=2)
@@ -233,6 +239,15 @@ def bound_ms(nbytes, flops, dtype):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def fct_work(ntr, nens, nz, nx, itemsize):
+    """Bytes one call of csrc/awfl_fct.cu needs: both tracer fluxes and
+    the start values read once, both limited fluxes written once (dz and
+    the flags, a few KB, left out)."""
+    cells = ntr * nens * nz * nx
+    faces = ntr * nens * (nz * (nx + 1) + (nz + 1) * nx)
+    return itemsize * (cells + 2 * faces)
+
+
 def plain_ops(fn):
     """Operations of one call of fn, a plain version made of elementwise
     PyTorch operations: one per element that each of them writes (a pow,
@@ -280,8 +295,8 @@ def ptxas_summary(log):
     out, name = [], "?"
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
-            kernel = next((k for k in ("p3_part2", "awfl_flux", "weno_x",
-                                       "weno_z_edges")
+            kernel = next((k for k in ("p3_part2", "awfl_flux", "awfl_fct",
+                                       "weno_x", "weno_z_edges")
                            if k + "_kernel" in ln), "?")
             tail = ln.split(kernel + "_kernel", 1)[-1]
             name = kernel + "/" + ("f64" if tail.startswith("Id") else
@@ -657,6 +672,115 @@ def phase_b3(awfl_flux, weno):
     return errs, timing, f32_off
 
 
+# FCT (csrc/awfl_fct.cu) at (case, ntr, nens, nz, nx): the cell's call
+# (Kessler's three tracers, pama_kessler.nens128), a plane larger than a
+# block's shared memory, and P3's ten tracers; tracer 1 is not
+# positive-definite in each
+FCT_CASES = (("cell", 3, 128, 50, 65), ("large plane", 2, 4, 200, 256),
+             ("p3 tracers", 10, 128, 50, 65))
+FCT_DX = 2000.0                   # dx = dy of the cells' grid
+FCT_ULPS = 4    # kernel vs the plain version on the card, of each face
+
+
+def fct_inputs(ntr, nens, ny, nz, nx, dtype, device, seed=0,
+               member_dz=True):
+    """Seeded inputs of ops/awfl_fct.py: tracer fluxes of both signs per
+    direction (x, then y in 3-D, then z), start values that run short in
+    about half of the cells (a fifth of them empty, one negative),
+    stretched levels (a dz per member, or with ``member_dz`` false one
+    for all), tracer 1 not positive-definite. Returns (fluxes,
+    tracers_start, dz4, pos), ``fluxes`` as fct_limit_reference takes
+    them (state fluxes None), on a grid of spacing FCT_DX."""
+    from pam_tpu_torch.ops import awfl_fct
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
+    cells = (ntr, nens, ny, nz, nx)
+    members = np.arange(nens if member_dz else 1)[:, None]
+    dz4 = t(300.0 * (1.0 + 0.35 * np.sin(np.arange(nz) + members))
+            )[:, None, :, None]
+    fluxes = []
+    for ax, d in ((awfl_fct.AX_X, FCT_DX), (awfl_fct.AX_Y, FCT_DX),
+                  (awfl_fct.AX_Z, dz4)):
+        if ax == awfl_fct.AX_Y and ny == 1:
+            continue
+        shape = list(cells)
+        shape[ax] += 1
+        fluxes.append((ax, d, None, t(1e-3 * rng.standard_normal(shape))))
+    start = 3e-5 * np.abs(rng.standard_normal(cells))
+    start *= rng.random(cells) > 0.2
+    start[..., 0, 0] = -1e-6
+    pos = torch.tensor([i != 1 for i in range(ntr)], device=device)
+    return fluxes, t(start), dz4, pos[:, None, None, None, None]
+
+
+def fct_firing_share(fluxes, tracers_start, dt, dz4, pos):
+    """Share of the positive tracers' cells whose outflow over dt exceeds
+    what they hold: where the limiter fires."""
+    vol = FCT_DX * FCT_DX * dz4
+    out = sum((tf.narrow(ax, 1, tf.shape[ax] - 1).clamp(min=0.0)
+               - tf.narrow(ax, 0, tf.shape[ax] - 1).clamp(max=0.0)) / d
+              for ax, d, _, tf in fluxes)
+    fires = out * dt * vol > tracers_start.clamp(min=0.0) * vol
+    return float(fires[pos.reshape(-1)].double().mean())
+
+
+def fct_ulps(ref, got, dtype):
+    """Largest |got - ref| in units of eps(dtype) times |ref|, over the
+    faces (a face where ref is 0 counts only if got is not)."""
+    ref, got = ref.double().cpu(), got.double().cpu()
+    diff = (got - ref).abs()
+    scale = torch.finfo(dtype).eps * ref.abs()
+    ulps = torch.where(diff == 0, 0.0, diff / scale)
+    return float(ulps.max())
+
+
+def phase_fct(awfl_fct):
+    """The FCT kernel through fct_limit_cuda at FCT_CASES, f64 and f32, dt
+    a 0-d tensor as in the compiled step: one launch a call, within
+    FCT_ULPS of the plain version on the card, and the faces that differ
+    from the plain version on the CPU (whose roundings the kernel
+    follows) counted; the limiter firing on a tenth of the cells or more.
+    Returns {(dtype, case): (kernel ms by graph replay, kernel ms by eager
+    launches, the plain version's ms by graph replay (what the compiled
+    step ran before), (bound ms, "bytes"), ulps from the card's plain
+    version, faces differing from the CPU's, firing share)}."""
+    out = {}
+    for dtype in (torch.float64, torch.float32):
+        for case, ntr, nens, nz, nx in FCT_CASES:
+            fluxes, start, dz4, pos = fct_inputs(ntr, nens, 1, nz, nx, dtype,
+                                                 "cuda", seed=nz + ntr)
+            dt = torch.tensor(7.3, dtype=dtype, device="cuda")
+            share = fct_firing_share(fluxes, start, dt, dz4, pos)
+            check(share > 0.1, f"FCT {case}: the limiter fires on {share}")
+            fx, fz = fluxes[0][3], fluxes[1][3]
+            kernel = lambda: awfl_fct.fct_limit_cuda(fx, fz, start, dt, dz4,
+                                                     pos, FCT_DX, FCT_DX)
+            plain = lambda: awfl_fct.fct_limit_reference(
+                fluxes, start, dt, dz4, pos, FCT_DX, FCT_DX)
+            before = awfl_fct.fct_limit_cuda.launches
+            got = kernel()
+            torch.cuda.synchronize()
+            check(awfl_fct.fct_limit_cuda.launches == before + 1,
+                  f"FCT {case}: not one launch")
+            ref = [r[3] for r in plain()]
+            cpu = awfl_fct.fct_limit_reference(
+                [(ax, d.cpu() if isinstance(d, torch.Tensor) else d, None,
+                  tf.cpu()) for ax, d, _, tf in fluxes], start.cpu(),
+                dt.cpu(), dz4.cpu(), pos.cpu(), FCT_DX, FCT_DX)
+            ulps = max(fct_ulps(r, g, dtype) for r, g in zip(ref, got))
+            check(ulps <= FCT_ULPS, f"FCT {case} {name_of(dtype)}: {ulps} "
+                  "ulp from the plain version")
+            differ = sum(int((g.cpu() != c[3]).sum())
+                         for g, c in zip(got, cpu))
+            nbytes = fct_work(ntr, nens, nz, nx, fx.element_size())
+            out[(name_of(dtype), case)] = (
+                graph_ms(kernel, 400), cuda_ms(kernel, 100),
+                graph_ms(plain, 40, per_graph=4), bound_ms(nbytes, 0, dtype),
+                ulps, differ, share)
+            del fluxes, start, dz4, got, ref, cpu
+    return out
+
+
 def run_steps(drv, state, nsteps):
     """nsteps CRM steps; returns (state, per-step ms by CUDA events,
     host-clock ms/step)."""
@@ -855,7 +979,8 @@ def run_config(standalone, mmf, counters, name, tmp, eager=False,
     want = {"weno_x": WENO_CALLS_PER_STEP * nsteps * n_chunks
             if dycore == "spam" else 0,
             "p3_part2": nsteps * n_chunks if p3 else 0,
-            "awfl_flux": FLUX_CALLS_PER_CYCLE * counts["sub_cycles"]}
+            "awfl_flux": FLUX_CALLS_PER_CYCLE * counts["sub_cycles"],
+            "awfl_fct": FCT_PER_CYCLE * counts["sub_cycles"]}
     if "weno_z" in counts:
         want["weno_z"] = (Z1_CALLS_PER_STEP * nsteps * n_chunks
                           if dycore == "spam" else 0)
@@ -1626,8 +1751,11 @@ def phase_17(standalone, weno, weno_x):
     check(k_p3["p3_part2"] == unsharded["p3_shoc"]["p3_part2"] > 0
           and k_p3["weno_x_padded"] > 0, f"17c P3+SHOC: {k_p3}")
     k_aw = res[0]["awfl_kessler"]["launches"]
+    # F1 on the card unsharded, the plain limiter on the x-sharded step
     check(k_aw["sub_cycles"] == unsharded["awfl_kessler"]["sub_cycles"]
-          and k_aw["awfl_flux"] == unsharded["awfl_kessler"]["awfl_flux"] > 0,
+          and k_aw["awfl_flux"] == unsharded["awfl_kessler"]["awfl_flux"] > 0
+          and unsharded["awfl_kessler"]["awfl_fct"]
+          == FCT_PER_CYCLE * k_aw["sub_cycles"] and k_aw["awfl_fct"] == 0,
           f"17c AWFL: {k_aw} vs {unsharded['awfl_kessler']}")
     k_3d = res[0]["spam3d_kessler"]["launches"]
     check(0 < k_3d["weno_x_padded"] < k_3d["weno_x"],
@@ -1799,7 +1927,8 @@ def phase_18(smi_line, counters, counts_17c):
     check(rows_18b["weno_x"] == spam * WENO_CALLS_PER_STEP
           and rows_18b["p3_part2"] == p3 and rows_18b["sub_cycles"] > 0
           and rows_18b["awfl_flux"] ==
-          rows_18b["sub_cycles"] * FLUX_CALLS_PER_CYCLE,
+          rows_18b["sub_cycles"] * FLUX_CALLS_PER_CYCLE
+          and rows_18b["awfl_fct"] == rows_18b["sub_cycles"] * FCT_PER_CYCLE,
           f"phase 18b: {rows_18b} ({spam} SPAM chunk steps, {p3} P3 "
           "chunk steps)")
     print("phase 18b python -m pam_tpu_torch.bench, the default rows on "
@@ -2237,7 +2366,8 @@ GRAPH_RAIN = 3e-2
 GRAPH_EAGER_GCM_S = 80.0
 # 21b: each counted kernel's name in a trace (csrc/*.cu)
 GRAPH_KERNELS = {"weno_x": "weno_x_kernel", "p3_part2": "p3_part2_kernel",
-                 "awfl_flux": "awfl_flux_kernel"}
+                 "awfl_flux": "awfl_flux_kernel",
+                 "awfl_fct": "awfl_fct_kernel"}
 # the runtime calls that a host makes to launch work on the card
 HOST_LAUNCHES = ("cudaLaunchKernel", "cudaLaunchKernelExC",
                  "cudaGraphLaunch", "cudaMemcpyAsync", "cudaMemsetAsync",
@@ -2858,7 +2988,8 @@ def main():
     from pam_tpu_torch.modules import gcm_forcing
     from pam_tpu_torch.profile_step import cards
     from pam_tpu_torch.dycore.awfl import AwflDycore
-    from pam_tpu_torch.ops import awfl_flux, p3_part2, weno, weno_x, weno_z
+    from pam_tpu_torch.ops import (awfl_fct, awfl_flux, p3_part2, weno,
+                                   weno_x, weno_z)
     from pam_tpu_torch.physics.p3 import main as p3main, sedimentation
     from pam_tpu_torch.utils import gw_verification
     sys.path.insert(0, os.path.join(ROOT, "tools"))
@@ -2874,6 +3005,7 @@ def main():
     b4_count = (p3_part2.p3_part2_cuda, "launches")
     sed_count = (sedimentation.combined_sedimentation, "rounds")
     b3_count = (awfl_flux.flux_direction_cuda, "launches")
+    fct_count = (awfl_fct.fct_limit_cuda, "launches")
     cycle_count = (AwflDycore.timestep, "cycles")
 
     # 2. build from pam_tpu_torch/csrc alone (one nvcc per source, side
@@ -3002,17 +3134,31 @@ def main():
                     for (d, c), (k, h, p, nb, fl) in b3_timing.items()),
           flush=True)
 
+    # 9b. the FCT limiter's kernel vs plain on the card
+    fct = phase_fct(awfl_fct)
+    print("phase 9b FCT kernel vs plain, dt a 0-d tensor: us/call kernel by "
+          "graph replay (by eager launches) / plain by graph replay (bound "
+          "from bytes), ulp from the plain version on the card, faces "
+          "differing from the plain version on the CPU, cells limited: " +
+          "; ".join(f"{d} {c} {k * 1e3:.2f} ({h * 1e3:.2f}) / {p * 1e3:.2f} "
+                    f"({b[0] * 1e3:.2f}), {u:.2f} ulp, {n} faces, "
+                    f"{share:.2f}"
+                    for (d, c), (k, h, p, b, u, n, share) in fct.items()),
+          flush=True)
+
     # 10. AWFL+Kessler reference trajectory on the card, f64, 5 steps
-    #     through the kernel
-    for obj, attr in (b3_count, cycle_count):
+    #     through the kernels
+    for obj, attr in (b3_count, cycle_count, fct_count):
         setattr(obj, attr, 0)
     state = golden_run(setup_supercell_mmf, state_from_numpy, "awfl_kessler",
                        nsteps=5, dycore="awfl")
     cycles = AwflDycore.timestep.cycles
     check(cycles >= 5 and awfl_flux.flux_direction_cuda.launches
-          == cycles * FLUX_CALLS_PER_CYCLE,
+          == cycles * FLUX_CALLS_PER_CYCLE
+          and awfl_fct.fct_limit_cuda.launches == cycles * FCT_PER_CYCLE,
           f"AWFL golden run: {awfl_flux.flux_direction_cuda.launches} B3 "
-          f"launches in {cycles} sub-cycles")
+          f"and {awfl_fct.fct_limit_cuda.launches} FCT launches in "
+          f"{cycles} sub-cycles")
     operr = golden_errors(state, "awfl_kessler_opbyop", {})
     gerr = golden_errors(state, "awfl_kessler", {})
     print(f"phase 10 AWFL+Kessler f64 5 steps, {cycles} sub-cycles, "
@@ -3030,10 +3176,12 @@ def main():
                                 (128, torch.float64, 3)):
         line, counts = full_width(
             setup_supercell_mmf, gcm_forcing,
-            {"awfl_flux": b3_count, "sub_cycles": cycle_count}, nens, dtype,
-            nsteps, WATER, dycore="awfl")
+            {"awfl_flux": b3_count, "awfl_fct": fct_count,
+             "sub_cycles": cycle_count}, nens, dtype, nsteps, WATER,
+            dycore="awfl")
         check(counts["sub_cycles"] >= nsteps and counts["awfl_flux"]
-              == counts["sub_cycles"] * FLUX_CALLS_PER_CYCLE,
+              == counts["sub_cycles"] * FLUX_CALLS_PER_CYCLE
+              and counts["awfl_fct"] == counts["sub_cycles"] * FCT_PER_CYCLE,
               f"phase 11: {counts} in {nsteps} steps")
         if awfl_counts is None:
             awfl_counts = counts
@@ -3084,8 +3232,8 @@ def main():
             line, counts, stats = run_config(
                 standalone, mmf,
                 {"weno_x": weno_count, "p3_part2": b4_count,
-                 "awfl_flux": b3_count, "sub_cycles": cycle_count,
-                 "weno_z": z_count}, name, tmp)
+                 "awfl_flux": b3_count, "awfl_fct": fct_count,
+                 "sub_cycles": cycle_count, "weno_z": z_count}, name, tmp)
             z1_launches[name] = counts["weno_z"]
             if name == "production":
                 production = (line, stats)
@@ -3102,19 +3250,20 @@ def main():
     bench_launches, chunked_rows, bench_recs = phase_18(
         chip,
         {"weno_x": weno_count, "p3_part2": b4_count, "awfl_flux": b3_count,
-         "sub_cycles": cycle_count}, sharded["counts_17c"])
+         "awfl_fct": fct_count, "sub_cycles": cycle_count},
+        sharded["counts_17c"])
     solve_launches = phase_19(setup_supercell_mmf, state_from_numpy,
                               gcm_forcing, standalone,
                               {"weno_x": weno_count, "p3_part2": b4_count})
     chunked_launches = phase_20(
         mmf, gcm_forcing, standalone,
         {"weno_x": weno_count, "p3_part2": b4_count,
-         "awfl_flux": b3_count, "sub_cycles": cycle_count}, chip, production,
-        chunked_rows)
+         "awfl_flux": b3_count, "awfl_fct": fct_count,
+         "sub_cycles": cycle_count}, chip, production, chunked_rows)
     phase_21(mmf, gcm_forcing, state_from_numpy, standalone,
              {"weno_x": weno_count, "p3_part2": b4_count,
-              "awfl_flux": b3_count, "sub_cycles": cycle_count}, chip,
-             bench_recs, production)
+              "awfl_flux": b3_count, "awfl_fct": fct_count,
+              "sub_cycles": cycle_count}, chip, bench_recs, production)
 
     # the kernels' record: float32 times at the main path's shapes (B4
     # with cloud, rain and ice each at half of the points); no single
@@ -3185,6 +3334,22 @@ def main():
          "bound_ms_x": bound_ms(x_bytes, x_flops, torch.float32)[0],
          "launches_sharded": sharded["awfl_flux"],
          "launches_bench": bench_launches["awfl_flux"]},
+        {"name": "awfl_fct", "route": "cuda",
+         "source": "pam_tpu_torch/csrc/awfl_fct.cu",
+         "replaces": "pam_tpu/dycore/awfl.py:399-445 (XLA-fused, no TPU "
+                     "kernel)",
+         "launches": awfl_counts["awfl_fct"],
+         "max_ulps": max(r[4] for r in fct.values()),
+         "faces_off_cpu": sum(r[5] for r in fct.values()),
+         "ms": fct[("float64", "cell")][0],
+         "plain_ms": fct[("float64", "cell")][2],
+         "bound_ms": fct[("float64", "cell")][3][0], "bound_by": "bytes",
+         "library_ms": None,
+         "calls": {f"{d} {c}": {"ms": k, "ms_eager": h, "plain_ms": p,
+                                "bound_ms": b[0], "ulps": u,
+                                "faces_off_cpu": n}
+                   for (d, c), (k, h, p, b, u, n, _) in fct.items()},
+         "launches_bench": bench_launches["awfl_fct"]},
         {"name": "weno_z", "route": "cuda",
          "source": "pam_tpu_torch/csrc/weno_z.cu",
          "replaces": "pam_tpu/spam/tendencies.py:61 (XLA-fused, no TPU "

@@ -35,8 +35,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # -fmad=false: no multiply-add contraction, so that the kernel rounds
 # every product and sum as its plain version's separate PyTorch launches
 # do. P3 part 2 needs it (float32 clips of drained species flip
-# otherwise); the WENO kernels are held to a tolerance and contract.
-SOURCE_FLAGS = {"p3_part2.cu": ("-fmad=false",)}
+# otherwise), and the FCT limiter follows its plain version's roundings;
+# the WENO kernels are held to a tolerance and contract.
+SOURCE_FLAGS = {"p3_part2.cu": ("-fmad=false",),
+                "awfl_fct.cu": ("-fmad=false",)}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -124,7 +126,7 @@ def library() -> types.SimpleNamespace:
         fn.argtypes, fn.restype = argtypes, i32
         setattr(lib, name, fn)
 
-    from .ops import awfl_flux, p3_part2, weno5, weno_x, weno_z
+    from .ops import awfl_fct, awfl_flux, p3_part2, weno5, weno_x, weno_z
     cdll = ctypes.CDLL(str(paths["weno_x.cu"]))
     for name in ("pam_weno_x_f32", "pam_weno_x_f64", "pam_weno_x_padded_f32",
                  "pam_weno_x_padded_f64"):
@@ -168,6 +170,15 @@ def library() -> types.SimpleNamespace:
         raise RuntimeError("csrc/awfl_flux.cu expects another argument, "
                            "table or tile layout than ops/awfl_flux.py "
                            "passes")
+    cdll = ctypes.CDLL(str(paths["awfl_fct.cu"]))
+    for name in ("pam_awfl_fct_f32", "pam_awfl_fct_f64"):
+        bind(cdll, name, [ptr, ctypes.c_double, ctypes.c_double,
+                          ctypes.c_double, ptr])
+    bind(cdll, "pam_awfl_fct_layout", [])
+    if (lib.pam_awfl_fct_layout()
+            != awfl_fct.N_ARGS * 1000000 + awfl_fct.ENTRIES):
+        raise RuntimeError("csrc/awfl_fct.cu expects another argument or "
+                           "tile layout than ops/awfl_fct.py passes")
     cdll = ctypes.CDLL(str(paths["graph_while.cu"]))
     bind(cdll, "pam_capture_begin", [ptr, ptr])
     bind(cdll, "pam_while_begin", [ptr, ptr, ptr, ptr, ptr])

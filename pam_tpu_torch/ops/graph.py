@@ -290,7 +290,7 @@ class _Recorder:
         self.device = device
         self.trips = None      # the trip counter of the body being captured
         self.adds = {}         # (id owner, attr, id trips) -> [o, a, t, n]
-        self.tensor_adds = []  # (owner, attr, tensor)
+        self.tensor_adds = {}  # (id owner, attr) -> [owner, attr, tensor]
         self.values = []       # (owner, attr, tensor)
         self.checks = []       # (ok, exc, message, values)
 
@@ -299,11 +299,22 @@ class _Recorder:
             if self.trips is not None:
                 raise CaptureError(f"count({attr}) of a tensor inside a "
                                    "while_loop body under capture")
-            self.tensor_adds.append((owner, attr, n))
+            self._add_tensor(owner, attr, n)
             return
         key = (id(owner), attr, id(self.trips))
         entry = self.adds.setdefault(key, [owner, attr, self.trips, 0])
         entry[3] += n
+
+    def _add_tensor(self, owner, attr, n):
+        """Add the 0-d device tensor ``n`` to ``owner.attr`` after every
+        replay; a second tensor for the same counter is summed in the
+        graph, so that each counter takes one tensor."""
+        n = n.to(torch.int64)
+        entry = self.tensor_adds.get((id(owner), attr))
+        if entry is None:
+            self.tensor_adds[(id(owner), attr)] = [owner, attr, n]
+        else:
+            entry[2] = entry[2] + n
 
     def publish(self, owner, attr, value):
         if self.trips is not None:
@@ -319,7 +330,7 @@ class _Recorder:
         leaves, spec = pytree.tree_flatten(carry)
         # the body rewrites fixed addresses: the loop's own copies
         bufs = [t.clone() for t in leaves]
-        trips = torch.zeros((), dtype=torch.int32, device=self.device)
+        trips = torch.zeros((), dtype=torch.int64, device=self.device)
         state = pytree.tree_unflatten(bufs, spec)
         pred = _predicate(cond_fn(state))
         lib = _lib()
@@ -362,6 +373,10 @@ class _Recorder:
             self.trips = None
             if not ended:
                 lib.pam_while_abort(stream, parent, node)
+        # the body's counts: trips times each, in the graph after the node
+        for key in [k for k, e in self.adds.items() if e[2] is trips]:
+            owner, attr, _, n = self.adds.pop(key)
+            self._add_tensor(owner, attr, trips * n)
         if counter is not None:
             self.count(*counter, trips)
         if name is not None:
@@ -369,12 +384,26 @@ class _Recorder:
         return state
 
     def after_replay(self):
-        """The recorded counts and values, applied on the host's side."""
-        for owner, attr, trips, n in self.adds.values():
-            setattr(owner, attr, getattr(owner, attr)
-                    + (n if trips is None else trips * n))
-        for owner, attr, t in self.tensor_adds:
-            setattr(owner, attr, getattr(owner, attr) + t)
+        """The recorded counts and values, applied on the host's side: the
+        counts the graph computed as one operation for all of them (two
+        while a counter still holds a host int), each a new tensor, so
+        that a value read before stays as it was."""
+        for owner, attr, _, n in self.adds.values():
+            setattr(owner, attr, getattr(owner, attr) + n)
+        entries = list(self.tensor_adds.values())
+        olds = [getattr(o, a) for o, a, _ in entries]
+        held = [isinstance(v, torch.Tensor) for v in olds]
+        tensors = [i for i, h in enumerate(held) if h]
+        ints = [i for i, h in enumerate(held) if not h]
+        new = []
+        if tensors:
+            new += zip(tensors, torch._foreach_add(
+                [olds[i] for i in tensors], [entries[i][2] for i in tensors]))
+        if ints:
+            new += zip(ints, torch._foreach_add(
+                [entries[i][2] for i in ints], [olds[i] for i in ints]))
+        for i, v in new:
+            setattr(entries[i][0], entries[i][1], v)
         for owner, attr, t in self.values:
             setattr(owner, attr, t.clone())
 

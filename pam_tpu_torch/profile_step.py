@@ -72,7 +72,7 @@ DTYPES = {"f32": torch.float32, "f64": torch.float64}
 WARMUP, STEPS, TOP = 3, 5, 12
 GAPS = 5   # the widest gaps between replays that --compiled names
 OWN_KERNELS = ("weno_x_kernel", "weno_z_edges_kernel", "p3_part2_kernel",
-               "awfl_flux_kernel")
+               "awfl_flux_kernel", "awfl_fct_kernel")
 
 
 def cards() -> list:

@@ -10,6 +10,9 @@ On the CPU (16x1x12, f64):
   tensor count, and its device route equals its eager one;
 * ``no_host_reads`` refuses every host read it names, but the eager
   predicate of a while loop;
+* what a capture records of the counts is added after a replay in one
+  operation for all counters (two while one still holds a host int), as
+  new values, so that a value read before stays as it was;
 * ``_crm_phys_step_single`` of SPAM+SI Kessler, P3+SHOC and AWFL+Kessler
   completes under ``no_host_reads``, the route capture takes (the trip
   counts stay tensors and every loop tests its predicate), so the step
@@ -45,7 +48,8 @@ import torch
 import pam_tpu_torch.driver.mmf as tmmf
 from pam_tpu_torch.dycore.awfl import AwflDycore
 from pam_tpu_torch.modules import gcm_forcing as tforcing
-from pam_tpu_torch.ops import awfl_flux, graph, p3_part2, weno_x, weno_z
+from pam_tpu_torch.ops import (awfl_fct, awfl_flux, graph, p3_part2, weno_x,
+                               weno_z)
 from pam_tpu_torch.physics import kessler as tkessler
 from pam_tpu_torch.physics.p3 import sedimentation as tsed
 
@@ -67,7 +71,8 @@ COUNTERS = ((tkessler.kessler_column, "rainsplit"),
             (weno_x.weno_edges_x_cuda, "launches_padded"),
             (weno_z.weno_edges_z_cuda, "launches"),
             (p3_part2.p3_part2_cuda, "launches"),
-            (awfl_flux.flux_direction_cuda, "launches"))
+            (awfl_flux.flux_direction_cuda, "launches"),
+            (awfl_fct.fct_limit_cuda, "launches"))
 
 
 @pytest.fixture(autouse=True)
@@ -159,6 +164,40 @@ def test_no_host_reads_allows_the_eager_predicate_only():
 def _counts():
     return (tkessler.kessler_column.rainsplit, AwflDycore.timestep.cycles,
             tsed.combined_sedimentation.rounds)
+
+
+def test_a_replays_counts_are_added_in_one_operation():
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Owner:
+        """Counters as a kernel wrapper holds them."""
+        a, b, c = 0, 5, 2
+
+    class Ops(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.names = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.names.append(str(func))
+            return func(*args, **(kwargs or {}))
+
+    rec = graph._Recorder(torch.device("cpu"))
+    rec.count(Owner, "a", torch.tensor(3, dtype=torch.int32))
+    rec.count(Owner, "a", torch.tensor(4))     # summed at capture
+    rec.count(Owner, "b", torch.tensor(2))
+    rec.count(Owner, "c", 1)                   # a host int, no operation
+    replays = []
+    for _ in range(2):
+        with Ops() as ops:
+            rec.after_replay()
+        replays.append((ops.names, Owner.a, Owner.b, Owner.c))
+    (ops1, a1, b1, c1), (ops2, a2, b2, c2) = replays
+    assert ops1 == ["aten._foreach_add.ScalarList"]
+    assert ops2 == ["aten._foreach_add.List"]
+    assert (int(a1), int(b1), c1) == (7, 7, 3)
+    assert (int(a2), int(b2), c2) == (14, 9, 4)
+    assert a1.dtype == torch.int64 and a2 is not a1
 
 
 @pytest.fixture(scope="module", params=list(STACKS))

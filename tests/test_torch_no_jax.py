@@ -37,7 +37,7 @@ from pam_tpu_torch.driver.mmf import setup_supercell_mmf
 from pam_tpu_torch.modules import gcm_forcing, saturation
 from pam_tpu_torch.core.coupler import Coupler
 from pam_tpu_torch.dycore import AwflDycore, awfl_init
-from pam_tpu_torch.ops import awfl_flux, p3_part2
+from pam_tpu_torch.ops import awfl_fct, awfl_flux, p3_part2
 from pam_tpu_torch.physics import p3
 from pam_tpu_torch.physics.sgs import shoc
 for micro, sgs, dycore in (("kessler", "none", "spam"),
@@ -62,6 +62,7 @@ state = awfl_init.init_thermal(cpl, cpl.allocate_state(zint))
 state = AwflDycore.build(cpl, np.diff(zint)).timestep(state, 5.0)
 assert float(state["wvel"].max()) > 0.0
 assert awfl_flux.flux_direction_cuda.launches == 0
+assert awfl_fct.fct_limit_cuda.launches == 0
 import os, tempfile
 from pam_tpu_torch.core import profiles, vinterp
 from pam_tpu_torch.driver import standalone

@@ -336,6 +336,7 @@ def test_build_key_changes_with_a_header(tmp_path):
     assert _cuda.source_key(tmp_path / "a.cu") != a0
     # a source's own flags are part of its key
     assert "-fmad=false" in _cuda.SOURCE_FLAGS["p3_part2.cu"]
+    assert "-fmad=false" in _cuda.SOURCE_FLAGS["awfl_fct.cu"]
     assert "-fmad=false" not in _cuda.NVCC_FLAGS
     (tmp_path / "p3_part2.cu").write_text('#include "h.cuh"\n')
     with_flag = _cuda.source_key(tmp_path / "p3_part2.cu")
@@ -346,8 +347,8 @@ def test_build_key_changes_with_a_header(tmp_path):
     assert sorted(f.name for f in _cuda.CSRC.glob("*.cuh")) == [
         "p3_tables.cuh", "weno5.cuh"]
     assert {s.name for s in _cuda._sources()} == {
-        "awfl_flux.cu", "graph_while.cu", "p3_part2.cu", "trace_stamp.cu",
-        "weno_x.cu", "weno_z.cu"}
+        "awfl_fct.cu", "awfl_flux.cu", "graph_while.cu", "p3_part2.cu",
+        "trace_stamp.cu", "weno_x.cu", "weno_z.cu"}
     for name in ("awfl_flux.cu", "weno_x.cu", "weno_z.cu"):
         assert '#include "weno5.cuh"' in (_cuda.CSRC / name).read_text()
     assert '#include "p3_tables.cuh"' in (

@@ -376,11 +376,12 @@ PROD_STEPS = 10
 def _counters():
     """The kernels' launch counters and AWFL's sub-cycles, by name."""
     from pam_tpu_torch.dycore.awfl import AwflDycore
-    from pam_tpu_torch.ops import awfl_flux, p3_part2
+    from pam_tpu_torch.ops import awfl_fct, awfl_flux, p3_part2
     return {"weno_x": (weno_x.weno_edges_x_cuda, "launches"),
             "weno_x_padded": (weno_x.weno_edges_x_cuda, "launches_padded"),
             "p3_part2": (p3_part2.p3_part2_cuda, "launches"),
             "awfl_flux": (awfl_flux.flux_direction_cuda, "launches"),
+            "awfl_fct": (awfl_fct.fct_limit_cuda, "launches"),
             "sub_cycles": (AwflDycore.timestep, "cycles")}
 
 
