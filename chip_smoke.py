@@ -292,19 +292,19 @@ def ptxas_summary(log):
     """Registers and spills per kernel instantiation from nvcc -Xptxas -v
     (a line that reports no spill is left out: the device functions that
     csrc/p3_part2.cu calls print one each)."""
+    from pam_tpu_torch._cuda import KERNELS
     out, name = [], "?"
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
-            kernel = next((k for k in ("p3_part2", "awfl_flux", "awfl_fct",
-                                       "weno_x", "weno_z_edges")
-                           if k + "_kernel" in ln), "?")
-            tail = ln.split(kernel + "_kernel", 1)[-1]
-            name = kernel + "/" + ("f64" if tail.startswith("Id") else
-                                   "f32" if tail.startswith("If") else "?")
-            if kernel == "awfl_flux":   # <T, per-level matrices, along x>
+            k = next((k for k in KERNELS if k.trace_name in ln), None)
+            tail = ln.split(k.trace_name, 1)[-1] if k else ""
+            name = (k.key if k else "?") + "/" + (
+                "f64" if tail.startswith("Id") else
+                "f32" if tail.startswith("If") else "?")
+            if k and k.key == "awfl_flux":  # <T, per-level matrices, along x>
                 name += ("/levels" if tail[2:].startswith("Lb1E") else
                          "/uniform") + ("/x" if "ELb1EE" in tail else "/yz")
-            elif kernel == "weno_z_edges":   # <T, per-level matrices>
+            elif k and k.key == "weno_z":   # <T, per-level matrices>
                 name += ("/levels" if tail[2:].startswith("Lb1E") else
                          "/uniform")
         elif "registers" in ln or ("spill" in ln
@@ -976,16 +976,14 @@ def run_config(standalone, mmf, counters, name, tmp, eager=False,
     ms = crm_step_ms(ms, n_chunks)
     wmax = healthy(state, tag, tuple(k for k in (P3_WATER if p3 else WATER)
                                      if k in state))
-    want = {"weno_x": WENO_CALLS_PER_STEP * nsteps * n_chunks
-            if dycore == "spam" else 0,
+    spam = dycore == "spam"
+    want = {"weno_x": WENO_CALLS_PER_STEP * nsteps * n_chunks if spam else 0,
+            "weno_z": Z1_CALLS_PER_STEP * nsteps * n_chunks if spam else 0,
             "p3_part2": nsteps * n_chunks if p3 else 0,
             "awfl_flux": FLUX_CALLS_PER_CYCLE * counts["sub_cycles"],
             "awfl_fct": FCT_PER_CYCLE * counts["sub_cycles"]}
-    if "weno_z" in counts:
-        want["weno_z"] = (Z1_CALLS_PER_STEP * nsteps * n_chunks
-                          if dycore == "spam" else 0)
     check(all(counts[k] == v for k, v in want.items())
-          and (dycore == "spam") == (counts["sub_cycles"] == 0),
+          and spam == (counts["sub_cycles"] == 0),
           f"{tag}: launches {counts}, expected {want}")
     zint = standalone.build_zint(cfg).astype(np.float64 if f64
                                              else np.float32)
@@ -2364,10 +2362,6 @@ GRAPH_RAIN = 3e-2
 # 21c: the production config's eager run cut to one GCM step of 4 CRM
 # steps (its file's 900 s GCM step is 45), the first a warmup, as 20b's
 GRAPH_EAGER_GCM_S = 80.0
-# 21b: each counted kernel's name in a trace (csrc/*.cu)
-GRAPH_KERNELS = {"weno_x": "weno_x_kernel", "p3_part2": "p3_part2_kernel",
-                 "awfl_flux": "awfl_flux_kernel",
-                 "awfl_fct": "awfl_fct_kernel"}
 # the runtime calls that a host makes to launch work on the card
 HOST_LAUNCHES = ("cudaLaunchKernel", "cudaLaunchKernelExC",
                  "cudaGraphLaunch", "cudaMemcpyAsync", "cudaMemsetAsync",
@@ -2428,9 +2422,10 @@ def both_routes(drv, state, nsteps, tag):
 
 def launch_profile(fn, state, nsteps):
     """(state, device launches a step, host launch calls a step, {kernel:
-    its launches in the trace, by name}) of a torch.profiler trace of
-    nsteps steps of fn, counted on the trace's raw events (the device
-    launches as profile_step.py::device_totals counts them)."""
+    its launches in the trace}) of a torch.profiler trace of nsteps steps
+    of fn, counted on the trace's raw events (the device launches as
+    profile_step.py::device_totals counts them, the kernels by their
+    trace names in ``_cuda.KERNELS``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from pam_tpu_torch.profile_step import device_totals, own_launches
@@ -2442,9 +2437,8 @@ def launch_profile(fn, state, nsteps):
         torch.cuda.synchronize()
     host = sum(e.device_type() != DeviceType.CUDA and e.name() in HOST_LAUNCHES
                for e in prof.profiler.kineto_results.events())
-    own = own_launches(prof)
-    named = {k: own[name] for k, name in GRAPH_KERNELS.items()}
-    return state, device_totals(prof, nsteps)[0], host / nsteps, named
+    return (state, device_totals(prof, nsteps)[0], host / nsteps,
+            own_launches(prof))
 
 
 def memory_split(drv, state):
@@ -3000,13 +2994,12 @@ def main():
     print(f"phase 1 env: torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)} "
           f"count {torch.cuda.device_count()}", flush=True)
-    weno_count = (weno_x.weno_edges_x_cuda, "launches")
-    z_count = (weno_z.weno_edges_z_cuda, "launches")
-    b4_count = (p3_part2.p3_part2_cuda, "launches")
+    # every kernel's launch counter, by its key in _cuda.KERNELS, and the
+    # loops' trip counters
+    kernels = {k.key: (k.launcher_fn(), "launches") for k in _cuda.KERNELS}
     sed_count = (sedimentation.combined_sedimentation, "rounds")
-    b3_count = (awfl_flux.flux_direction_cuda, "launches")
-    fct_count = (awfl_fct.fct_limit_cuda, "launches")
     cycle_count = (AwflDycore.timestep, "cycles")
+    with_cycles = {**kernels, "sub_cycles": cycle_count}
 
     # 2. build from pam_tpu_torch/csrc alone (one nvcc per source, side
     #    by side; csrc/weno5.cuh is in both WENO kernels' keys)
@@ -3056,8 +3049,7 @@ def main():
                                 (1024, torch.float32, 5),
                                 (128, torch.float64, 5)):
         line, counts = full_width(setup_supercell_mmf, gcm_forcing,
-                                  {"weno_x": weno_count, "weno_z": z_count},
-                                  nens, dtype, nsteps, WATER)
+                                  kernels, nens, dtype, nsteps, WATER)
         check(counts["weno_x"] == nsteps * WENO_CALLS_PER_STEP
               and counts["weno_z"] == nsteps * Z1_CALLS_PER_STEP,
               f"phase 5: {counts} in {nsteps} steps")
@@ -3083,7 +3075,7 @@ def main():
           flush=True)
 
     # 7. P3+SHOC golden trajectory on the card, f64, through both kernels
-    for obj, attr in (weno_count, b4_count, sed_count):
+    for obj, attr in (kernels["weno_x"], kernels["p3_part2"], sed_count):
         setattr(obj, attr, 0)
     with thomas_route():
         state = golden_run(setup_supercell_mmf, state_from_numpy,
@@ -3110,9 +3102,8 @@ def main():
                                 (128, torch.float64, 5)):
         line, counts = full_width(
             setup_supercell_mmf, gcm_forcing,
-            {"weno_x": weno_count, "p3_part2": b4_count,
-             "sed_rounds": sed_count, "weno_z": z_count}, nens, dtype,
-            nsteps, P3_WATER, micro="p3", sgs="shoc")
+            {**kernels, "sed_rounds": sed_count}, nens, dtype, nsteps,
+            P3_WATER, micro="p3", sgs="shoc")
         check(counts["weno_x"] == nsteps * WENO_CALLS_PER_STEP
               and counts["weno_z"] == nsteps * Z1_CALLS_PER_STEP
               and counts["p3_part2"] == nsteps,
@@ -3148,7 +3139,8 @@ def main():
 
     # 10. AWFL+Kessler reference trajectory on the card, f64, 5 steps
     #     through the kernels
-    for obj, attr in (b3_count, cycle_count, fct_count):
+    for obj, attr in (kernels["awfl_flux"], kernels["awfl_fct"],
+                      cycle_count):
         setattr(obj, attr, 0)
     state = golden_run(setup_supercell_mmf, state_from_numpy, "awfl_kessler",
                        nsteps=5, dycore="awfl")
@@ -3175,10 +3167,8 @@ def main():
                                 (1024, torch.float32, 3),
                                 (128, torch.float64, 3)):
         line, counts = full_width(
-            setup_supercell_mmf, gcm_forcing,
-            {"awfl_flux": b3_count, "awfl_fct": fct_count,
-             "sub_cycles": cycle_count}, nens, dtype, nsteps, WATER,
-            dycore="awfl")
+            setup_supercell_mmf, gcm_forcing, with_cycles, nens, dtype,
+            nsteps, WATER, dycore="awfl")
         check(counts["sub_cycles"] >= nsteps and counts["awfl_flux"]
               == counts["sub_cycles"] * FLUX_CALLS_PER_CYCLE
               and counts["awfl_fct"] == counts["sub_cycles"] * FCT_PER_CYCLE,
@@ -3229,11 +3219,8 @@ def main():
     z1_launches = {}
     with tempfile.TemporaryDirectory() as tmp, thomas_route():
         for name in MMF_CONFIGS:
-            line, counts, stats = run_config(
-                standalone, mmf,
-                {"weno_x": weno_count, "p3_part2": b4_count,
-                 "awfl_flux": b3_count, "awfl_fct": fct_count,
-                 "sub_cycles": cycle_count, "weno_z": z_count}, name, tmp)
+            line, counts, stats = run_config(standalone, mmf, with_cycles,
+                                             name, tmp)
             z1_launches[name] = counts["weno_z"]
             if name == "production":
                 production = (line, stats)
@@ -3243,27 +3230,18 @@ def main():
     phase_14(standalone, weno_x, golden, gw_verification)
     launches_3d = phase_15(standalone, weno_x, golden,
                            (setup_supercell_mmf, state_from_numpy,
-                            gcm_forcing, weno_count))
+                            gcm_forcing, kernels["weno_x"]))
     launches_16 = phase_16(standalone, weno_x, golden, setup_supercell_mmf)
     sharded = phase_17(standalone, weno, weno_x)
     pad32 = sharded["b1"][("float32", 32000, 65)]
     bench_launches, chunked_rows, bench_recs = phase_18(
-        chip,
-        {"weno_x": weno_count, "p3_part2": b4_count, "awfl_flux": b3_count,
-         "awfl_fct": fct_count, "sub_cycles": cycle_count},
-        sharded["counts_17c"])
+        chip, with_cycles, sharded["counts_17c"])
     solve_launches = phase_19(setup_supercell_mmf, state_from_numpy,
-                              gcm_forcing, standalone,
-                              {"weno_x": weno_count, "p3_part2": b4_count})
-    chunked_launches = phase_20(
-        mmf, gcm_forcing, standalone,
-        {"weno_x": weno_count, "p3_part2": b4_count,
-         "awfl_flux": b3_count, "awfl_fct": fct_count,
-         "sub_cycles": cycle_count}, chip, production, chunked_rows)
-    phase_21(mmf, gcm_forcing, state_from_numpy, standalone,
-             {"weno_x": weno_count, "p3_part2": b4_count,
-              "awfl_flux": b3_count, "awfl_fct": fct_count,
-              "sub_cycles": cycle_count}, chip, bench_recs, production)
+                              gcm_forcing, standalone, kernels)
+    chunked_launches = phase_20(mmf, gcm_forcing, standalone, with_cycles,
+                                chip, production, chunked_rows)
+    phase_21(mmf, gcm_forcing, state_from_numpy, standalone, with_cycles,
+             chip, bench_recs, production)
 
     # the kernels' record: float32 times at the main path's shapes (B4
     # with cloud, rain and ice each at half of the points); no single

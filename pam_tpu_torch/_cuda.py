@@ -1,5 +1,13 @@
 """Build and load the package's CUDA kernels (``csrc/*.cu``).
 
+:data:`KERNELS` holds what the package knows of its hand-written kernels
+outside their own files, a row a kernel; the build and every tool
+(``bench.py``, ``profile_step.py``, ``kernel_times.py``,
+``chip_smoke.py``) read it, so a new kernel is its ``.cu``, its module in
+``ops/`` and one row. ``csrc/graph_while.cu`` (the CUDA graph's WHILE
+nodes that ``ops/graph.py`` drives) and ``csrc/trace_stamp.cu`` (the
+stamps of ``utils/observe.py``'s tracer) are machinery and have no row.
+
 Each source is compiled with ``nvcc`` for Hopper (``sm_90a``) into a
 shared library of its own with a plain C interface, loaded with ctypes;
 the compilers of all sources run side by side. The build happens at first
@@ -7,11 +15,8 @@ use, into ``_build/`` beside this file, under a name keyed on a hash of
 the source, of every header ``csrc/*.cuh`` (``csrc/weno5.cuh`` is the
 limiter that ``weno_x.cu``, ``weno_z.cu`` and ``awfl_flux.cu`` include,
 ``csrc/p3_tables.cuh`` the table lookups of ``p3_part2.cu``) and of the
-flags (``csrc/graph_while.cu`` is no kernel of the TPU's but the capture
-of a CUDA graph with WHILE nodes that ``ops/graph.py`` drives,
-``csrc/trace_stamp.cu`` the device clock stamps of
-``utils/observe.py``'s tracer): an edited source or header is rebuilt and
-an unchanged one is reused. A missing ``nvcc`` or a failed compile raises with the compiler's
+flags: an edited source or header is rebuilt and an unchanged one is
+reused. A missing ``nvcc`` or a failed compile raises with the compiler's
 output; nothing falls back to the plain versions.
 """
 
@@ -21,6 +26,7 @@ import ctypes
 import dataclasses
 import functools
 import hashlib
+import importlib
 import os
 import shutil
 import subprocess
@@ -32,13 +38,52 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+@dataclasses.dataclass(frozen=True)
+class Kernel:
+    """One hand-written kernel: a row of :data:`KERNELS`."""
+    short: str        # its name in PERF.md (B1, B3, B4, Z1, F1)
+    source: str       # its file in csrc/
+    trace_name: str   # its __global__ function, as a profiler trace names it
+    launcher: str     # "module.function" in ops/ that launches it
+    flags: tuple = ()  # nvcc flags beyond NVCC_FLAGS
+
+    @property
+    def key(self) -> str:
+        """The source's stem (``weno_x``): the kernel's key in launch
+        counts."""
+        return self.source.removesuffix(".cu")
+
+    def launcher_fn(self):
+        """The launcher, whose ``launches`` counts the kernel's launches
+        (imported at the call: the ops modules import this one)."""
+        module, name = self.launcher.split(".")
+        return getattr(importlib.import_module(f"{__package__}.ops.{module}"),
+                       name)
+
+
 # -fmad=false: no multiply-add contraction, so that the kernel rounds
 # every product and sum as its plain version's separate PyTorch launches
 # do. P3 part 2 needs it (float32 clips of drained species flip
 # otherwise), and the FCT limiter follows its plain version's roundings;
 # the WENO kernels are held to a tolerance and contract.
-SOURCE_FLAGS = {"p3_part2.cu": ("-fmad=false",),
-                "awfl_fct.cu": ("-fmad=false",)}
+KERNELS = (
+    Kernel("B1", "weno_x.cu", "weno_x_kernel", "weno_x.weno_edges_x_cuda"),
+    Kernel("B3", "awfl_flux.cu", "awfl_flux_kernel",
+           "awfl_flux.flux_direction_cuda"),
+    Kernel("B4", "p3_part2.cu", "p3_part2_kernel", "p3_part2.p3_part2_cuda",
+           ("-fmad=false",)),
+    Kernel("Z1", "weno_z.cu", "weno_z_edges_kernel",
+           "weno_z.weno_edges_z_cuda"),
+    Kernel("F1", "awfl_fct.cu", "awfl_fct_kernel", "awfl_fct.fct_limit_cuda",
+           ("-fmad=false",)),
+)
+
+
+def source_flags(name: str) -> tuple:
+    """The nvcc flags of ``csrc/<name>`` beyond NVCC_FLAGS."""
+    return next((k.flags for k in KERNELS if k.source == name), ())
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,7 +101,7 @@ def source_key(src: Path) -> str:
     """Hash of what a source's library is made from: the flags, the
     source and every ``*.cuh`` beside it."""
     h = hashlib.sha256()
-    h.update(" ".join(NVCC_FLAGS + SOURCE_FLAGS.get(src.name, ())).encode())
+    h.update(" ".join(NVCC_FLAGS + source_flags(src.name)).encode())
     for f in [src, *sorted(src.parent.glob("*.cuh"))]:
         h.update(f.name.encode())
         h.update(f.read_bytes())
@@ -91,7 +136,7 @@ def build() -> Build:
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, *SOURCE_FLAGS.get(src.name, ()),
+        cmd = [_nvcc(), *NVCC_FLAGS, *source_flags(src.name),
                "-I", str(src.parent), "-o", str(tmp), str(src)]
         running.append((cmd, tmp, lib, log, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,

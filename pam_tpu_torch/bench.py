@@ -90,9 +90,9 @@ import time
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from ._cuda import KERNELS
 from .driver.mmf import _split_ens, pick_ens_chunk, setup_supercell_mmf
 from .modules import gcm_forcing
-from .ops import awfl_fct, awfl_flux, p3_part2, weno_x, weno_z
 from .profile_step import cards, device_totals, own_launches, timed_steps
 
 # inputs/input_pamc.yaml's CRM and bench.py's arguments (bench.py:142-148)
@@ -219,11 +219,7 @@ def device_ms_per_step(step, state, nsteps: int):
     stderr, where the trace's launches of the package's kernels differ
     from their counters (CUPTI can leave out kernels that a graph runs in
     a WHILE node's body: a sum without them is not the step's)."""
-    counters = {"weno_x_kernel": weno_x.weno_edges_x_cuda,
-                "weno_z_edges_kernel": weno_z.weno_edges_z_cuda,
-                "p3_part2_kernel": p3_part2.p3_part2_cuda,
-                "awfl_flux_kernel": awfl_flux.flux_direction_cuda,
-                "awfl_fct_kernel": awfl_fct.fct_limit_cuda}
+    counters = {k.key: k.launcher_fn() for k in KERNELS}
     before = {k: int(f.launches) for k, f in counters.items()}
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:

@@ -68,21 +68,9 @@ constexpr double kPi = 3.141592653589793;  // numpy.pi
 
 // Threads a block, and the blocks an SM must hold (caps the registers):
 // 96 registers in float, 168 in double, a few words spilled in each.
-// kernel_times.py --b4-variants builds the file with other values, and
-// with PAM_P3_COPY_ONLY (the loads and stores without the arithmetic:
-// the kernel's floor) to time them beside these.
-#ifndef PAM_P3_THREADS
-#define PAM_P3_THREADS 128
-#endif
-#ifndef PAM_P3_MIN_BLOCKS_F32
-#define PAM_P3_MIN_BLOCKS_F32 5
-#endif
-#ifndef PAM_P3_MIN_BLOCKS_F64
-#define PAM_P3_MIN_BLOCKS_F64 3
-#endif
+constexpr int THREADS = 128;
 template <typename T>
-constexpr int MIN_BLOCKS =
-    sizeof(T) == 4 ? PAM_P3_MIN_BLOCKS_F32 : PAM_P3_MIN_BLOCKS_F64;
+constexpr int MIN_BLOCKS = sizeof(T) == 4 ? 5 : 3;
 
 // The constants in T: the first NCONST in the order of
 // ops/p3_part2.py::_constants, which computes them in Python floats as
@@ -852,7 +840,7 @@ __device__ __forceinline__ void core(const Point<T>& p,
 }
 
 template <typename T>
-__global__ void __launch_bounds__(PAM_P3_THREADS, MIN_BLOCKS<T>)
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS<T>)
     p3_part2_kernel(const Args<T> a, const P3Consts<T> c, long long n,
                     double dt_d, int ccn_const) {
   const T dt = K(dt_d);
@@ -870,13 +858,8 @@ __global__ void __launch_bounds__(PAM_P3_THREADS, MIN_BLOCKS<T>)
         v[27], v[28], v[29], v[30], v[31], v[32], v[33], v[34], v[35]};
     // stage A, core
     T o[NOUT];
-#ifdef PAM_P3_COPY_ONLY
-#pragma unroll
-    for (int k = 0; k < NOUT; ++k) o[k] = v[k] + v[NIN - 1 - k] + p.t * dt;
-#else
     const TableValues<T> tv = stage_a(p, a, c);
     core(p, tv, c, dt, inv_dt, ccn_const, o);
-#endif
     // store
 #pragma unroll
     for (int k = 0; k < NOUT; ++k) a.out[k][i] = o[k];
@@ -903,7 +886,7 @@ int launch(const unsigned long long* ins, const unsigned long long* outs,
   c.inv_cons1 = T(1.0) / c.cons1;
   c.inv_gam_mur1 = T(1.0) / c.gam_mur1;
   if (n <= 0) return 0;
-  const int threads = PAM_P3_THREADS;
+  const int threads = THREADS;
   const long long blocks = (n + threads - 1) / threads;
   p3_part2_kernel<T><<<(unsigned)blocks, threads, 0,
                        static_cast<cudaStream_t>(stream)>>>(a, c, n, dt,

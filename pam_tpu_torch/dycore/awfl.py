@@ -308,15 +308,10 @@ class AwflDycore:
         (axis, spacing, state flux, tracer flux) per direction; returns
         the same with the tracer fluxes limited: a 2-D run's unsharded
         step on the card in one launch of ``csrc/awfl_fct.cu``, every
-        other call by the plain version (``ops/awfl_fct.py``)."""
+        other call by the plain version (``ops/awfl_fct.py::fct_limit``)."""
         cpl = self.coupler
-        if awfl_fct.uses_kernel(tracers_start.device, cpl.sim2d):
-            (ax, dx, sfx, tfx), (az, dz, sfz, tfz) = fluxes
-            tfx, tfz = awfl_fct.fct_limit_cuda(tfx, tfz, tracers_start, dt,
-                                               dz4, self.pos, cpl.dx, cpl.dy)
-            return [(ax, dx, sfx, tfx), (az, dz, sfz, tfz)]
-        return awfl_fct.fct_limit_reference(fluxes, tracers_start, dt, dz4,
-                                            self.pos, cpl.dx, cpl.dy)
+        return awfl_fct.fct_limit(fluxes, tracers_start, dt, dz4, self.pos,
+                                  cpl.dx, cpl.dy, cpl.sim2d)
 
     # ------------------------------------------------------------- time step
     def _ssprk3_cycle(self, dyn, tracers, dt, state):

@@ -5,9 +5,9 @@ version.
 positive-definite tracer so that no cell gives away more mass than it
 holds at the start of the stage (ref: Dycore.h:521-550). pam_tpu writes
 it as jnp, which XLA fuses; eager PyTorch and its CUDA graph run the same
-arithmetic as ~31 elementwise kernels a tendency. :func:`uses_kernel` is
-the route: a 2-D run's CUDA tensors, with x not sharded, go to
-``csrc/awfl_fct.cu`` through :func:`fct_limit_cuda` (one launch a
+arithmetic as ~31 elementwise kernels a tendency. :func:`fct_limit` routes
+by :func:`uses_kernel`: a 2-D run's CUDA tensors, with x not sharded, go
+to ``csrc/awfl_fct.cu`` through :func:`fct_limit_cuda` (one launch a
 tendency, or raise); every other call (CPU tensors, a 3-D run, the
 x-sharded step, whose multipliers cross the seam by a ring exchange) to
 :func:`fct_limit_reference`, which the card-side comparison also uses.
@@ -84,8 +84,8 @@ def fct_limit_reference(fluxes, tracers_start, dt, dz4, pos, dx, dy):
 
 
 def uses_kernel(device: torch.device, sim2d: bool) -> bool:
-    """Whether ``_fct`` takes the kernel: CUDA tensors of a 2-D run with x
-    not sharded over a mesh."""
+    """Whether :func:`fct_limit` takes the kernel: CUDA tensors of a 2-D
+    run with x not sharded over a mesh."""
     return device.type == "cuda" and sim2d and not comm.sharded("x")
 
 
@@ -193,3 +193,16 @@ def fct_limit_cuda(flux_x, flux_z, tracers_start, dt, dz4, pos, dx, dy):
 
 
 fct_limit_cuda.launches = 0         # every launch
+
+
+def fct_limit(fluxes, tracers_start, dt, dz4, pos, dx, dy, sim2d: bool):
+    """The FCT limiter: arguments and result as :func:`fct_limit_reference`
+    (``sim2d``: whether the run is 2-D). Where :func:`uses_kernel` holds,
+    the kernel limits the x and z tracer fluxes in one launch; elsewhere
+    the plain version."""
+    if uses_kernel(tracers_start.device, sim2d):
+        (ax, sx, sfx, tfx), (az, sz, sfz, tfz) = fluxes
+        tfx, tfz = fct_limit_cuda(tfx, tfz, tracers_start, dt, dz4, pos, dx,
+                                  dy)
+        return [(ax, sx, sfx, tfx), (az, sz, sfz, tfz)]
+    return fct_limit_reference(fluxes, tracers_start, dt, dz4, pos, dx, dy)

@@ -149,12 +149,11 @@ def tile_faces(nfaces: int) -> int:
     return -(-nfaces // tiles)
 
 
-def flux_direction_cuda(prim, trac, pres, axis, tables, levels=None,
-                        faces_per_tile=None):
+def flux_direction_cuda(prim, trac, pres, axis, tables, levels=None):
     """Launch ``csrc/awfl_flux.cu`` on CUDA tensors (float32 or float64;
-    any strides); arguments and results as :func:`flux_direction_reference`.
-    ``levels`` may hold one matrix set or one per member.
-    ``faces_per_tile`` overrides :func:`tile_faces` (for measuring it)."""
+    any strides), in tiles of :func:`tile_faces`; arguments and results as
+    :func:`flux_direction_reference`. ``levels`` may hold one matrix set or
+    one per member."""
     _check_direction(prim, trac, pres, axis)
     for name, a in (("prim", prim), ("trac", trac), ("pres", pres)):
         if not a.is_cuda:
@@ -190,8 +189,7 @@ def flux_direction_cuda(prim, trac, pres, axis, tables, levels=None,
     ntr = trac.shape[0]
     oshape = list(prim.shape[1:])
     oshape[axis - 1] -= ORD
-    tf = tile_faces(oshape[axis - 1]) if faces_per_tile is None \
-        else int(faces_per_tile)
+    tf = tile_faces(oshape[axis - 1])
     sflux = prim.new_empty([5] + oshape)
     tflux = prim.new_empty([ntr] + oshape)
     args = np.array(

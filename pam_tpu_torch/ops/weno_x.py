@@ -93,12 +93,11 @@ def tiling(rows: int, nx: int) -> tuple[int, int]:
     return best, nx
 
 
-def weno_edges_x_cuda(field: torch.Tensor, tables, rows_per_block=None,
-                      padded: bool = False):
+def weno_edges_x_cuda(field: torch.Tensor, tables, padded: bool = False):
     """Launch ``csrc/weno_x.cu`` on a contiguous (rows, nx) float32/float64
     CUDA tensor, or with ``padded`` on a (rows, nx+4) one whose halos are
-    in place; returns (left, right), each (rows, nx). ``rows_per_block``
-    overrides :func:`tiling`'s choice (for measuring it)."""
+    in place, in blocks of :func:`tiling`; returns (left, right), each
+    (rows, nx)."""
     if not field.is_cuda:
         raise ValueError(f"weno_edges_x_cuda needs a CUDA tensor, got "
                          f"{field.device}")
@@ -124,8 +123,6 @@ def weno_edges_x_cuda(field: torch.Tensor, tables, rows_per_block=None,
     lib = _cuda.library()
     packed = weno5.prepared_tables(tables)
     rb, seg = tiling(rows, nx)
-    if rows_per_block is not None:
-        rb = int(rows_per_block)
     left = field.new_empty((rows, nx))
     right = field.new_empty((rows, nx))
     fn = getattr(lib, "pam_weno_x_" + ("padded_" if padded else "") +

@@ -60,6 +60,7 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
+from ._cuda import KERNELS
 from .driver.mmf import setup_supercell_mmf
 from .dycore.awfl import AwflDycore
 from .modules import gcm_forcing
@@ -71,8 +72,6 @@ FULL3D = dict(FULL, nx=32, ny=32, xlen=64000.0, ylen=64000.0)
 DTYPES = {"f32": torch.float32, "f64": torch.float64}
 WARMUP, STEPS, TOP = 3, 5, 12
 GAPS = 5   # the widest gaps between replays that --compiled names
-OWN_KERNELS = ("weno_x_kernel", "weno_z_edges_kernel", "p3_part2_kernel",
-               "awfl_flux_kernel", "awfl_fct_kernel")
 
 
 def cards() -> list:
@@ -139,13 +138,13 @@ def device_totals(prof, nsteps):
 
 
 def own_launches(prof) -> dict:
-    """Launches of each of the package's kernels (``OWN_KERNELS``) in a
-    torch.profiler trace, by name."""
-    n = dict.fromkeys(OWN_KERNELS, 0)
+    """Launches of each of the package's kernels (``_cuda.KERNELS``) in a
+    torch.profiler trace, by key, found by their trace names."""
+    n = {k.key: 0 for k in KERNELS}
     for e in prof.profiler.kineto_results.events():
         if e.device_type() == DeviceType.CUDA:
-            for k in OWN_KERNELS:
-                n[k] += k in e.name()
+            for k in KERNELS:
+                n[k.key] += k.trace_name in e.name()
     return n
 
 
@@ -346,7 +345,7 @@ def main(argv=None):
         print(f"  {name:28s} {d:9.3f} {h:9.3f}")
     print("csrc kernels (not in the layer rows): calls/step, ms/step, name")
     for name, (n, us) in r["top"]:
-        own = [k for k in OWN_KERNELS if k in name]
+        own = [k.trace_name for k in KERNELS if k.trace_name in name]
         if own:
             print(f"  {n / STEPS:7.1f} {us / STEPS / 1e3:8.3f}  "
                   f"{name[name.index(own[0]):][:60]}")

@@ -872,7 +872,9 @@ def test_cuda_kernel_matches_plain_version(case, dtype):
 @pytest.mark.parametrize("axis", [AX_X, AX_Z], ids=["x", "z"])
 def test_cuda_kernel_on_every_second_member_and_every_tile(axis):
     """A member stride that is not the array's own (every second member
-    of a larger array), and every tile size along z: the same result."""
+    of a larger array), and every tile size that tile_faces chooses (1-4
+    faces along z), reached by the first 1-4 faces of the axis (with
+    their levels' matrices) and by all of them: the same result."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     prim, trac, pres, levels = b3_inputs(6, 2, 9, 21, 3, axis, torch.float64,
@@ -880,12 +882,18 @@ def test_cuda_kernel_on_every_second_member_and_every_tile(axis):
     prim, trac, pres = prim[:, ::2], trac[:, ::2], pres[::2]
     assert not prim.is_contiguous()
     tb = weno.weno_tables(5, torch.float64)
-    ref = awfl_flux.flux_direction_reference(prim, trac, pres, axis, tb,
-                                             levels)
-    for tf in (None, 1, 3, awfl_flux.MAX_TILE_FACES):
-        got = awfl_flux.flux_direction_cuda(prim, trac, pres, axis, tb,
-                                            levels, faces_per_tile=tf)
+    nfaces = prim.shape[axis] - awfl_flux.ORD
+    assert awfl_flux.tile_faces(nfaces) == awfl_flux.TILE_FACES
+    for nf in (1, 2, 3, 4, nfaces):
+        assert awfl_flux.tile_faces(nf) == min(nf, awfl_flux.TILE_FACES)
+        cut = [a.narrow(axis - (a.ndim < 5), 0, nf + awfl_flux.ORD)
+               for a in (prim, trac, pres)]
+        lv = levels if levels is None else awfl_flux.LevelMatrices(
+            s2c=levels.s2c[..., :nf + 1, :], wrl=levels.wrl[..., :nf + 1, :],
+            packed=levels.packed[:, :nf + 1])
+        ref = awfl_flux.flux_direction_reference(*cut, axis, tb, lv)
+        got = awfl_flux.flux_direction_cuda(*cut, axis, tb, lv)
         torch.cuda.synchronize()
         for r, g in zip(torch.cat(ref), torch.cat(got)):
             assert _rel(r.cpu().numpy(), g.cpu().numpy()) \
-                < KERNEL_TOL[torch.float64], tf
+                < KERNEL_TOL[torch.float64], nf

@@ -189,6 +189,25 @@ def test_fct_takes_the_plain_version_on_cpu_tensors(ny):
         assert g[:3] == w[:3] and torch.equal(g[3], w[3])
 
 
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["float64", "float32"])
+@pytest.mark.parametrize("ny", [1, 4], ids=["2d", "3d"])
+def test_fct_limit_on_cpu_tensors_is_the_plain_version(ny, dtype):
+    """ops/awfl_fct.py::fct_limit, the route's one entry, on CPU tensors
+    of a 2-D and a 3-D run: fct_limit_reference's result bit for bit, the
+    kernel's counter unmoved."""
+    fluxes, start, dz4, pos = fct_inputs(3, 2, ny, 5, 6, dtype, "cpu",
+                                          seed=4)
+    dt = torch.tensor(7.3, dtype=dtype)
+    before = awfl_fct.fct_limit_cuda.launches
+    got = awfl_fct.fct_limit(fluxes, start, dt, dz4, pos, DX, DY, ny == 1)
+    want = awfl_fct.fct_limit_reference(fluxes, start, dt, dz4, pos, DX, DY)
+    assert awfl_fct.fct_limit_cuda.launches == before
+    assert len(got) == len(want) == (2 if ny == 1 else 3)
+    for g, w in zip(got, want):
+        assert g[:3] == w[:3] and torch.equal(g[3], w[3])
+
+
 def test_fct_hands_the_kernel_the_x_and_z_tracer_fluxes(monkeypatch):
     """Where uses_kernel holds, _fct passes the x and z tracer fluxes, the
     start values, dt, dz4, its pos and the coupler's dx and dy to

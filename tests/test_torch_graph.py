@@ -46,10 +46,10 @@ import pytest
 import torch
 
 import pam_tpu_torch.driver.mmf as tmmf
+from pam_tpu_torch._cuda import KERNELS
 from pam_tpu_torch.dycore.awfl import AwflDycore
 from pam_tpu_torch.modules import gcm_forcing as tforcing
-from pam_tpu_torch.ops import (awfl_fct, awfl_flux, graph, p3_part2, weno_x,
-                               weno_z)
+from pam_tpu_torch.ops import graph, weno_x, weno_z
 from pam_tpu_torch.physics import kessler as tkessler
 from pam_tpu_torch.physics.p3 import sedimentation as tsed
 
@@ -67,12 +67,8 @@ STACKS = {"kessler": dict(dycore="spam", micro="kessler"),
 COUNTERS = ((tkessler.kessler_column, "rainsplit"),
             (AwflDycore.timestep, "cycles"),
             (tsed.combined_sedimentation, "rounds"),
-            (weno_x.weno_edges_x_cuda, "launches"),
             (weno_x.weno_edges_x_cuda, "launches_padded"),
-            (weno_z.weno_edges_z_cuda, "launches"),
-            (p3_part2.p3_part2_cuda, "launches"),
-            (awfl_flux.flux_direction_cuda, "launches"),
-            (awfl_fct.fct_limit_cuda, "launches"))
+            *((k.launcher_fn(), "launches") for k in KERNELS))
 
 
 @pytest.fixture(autouse=True)

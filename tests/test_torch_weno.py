@@ -334,14 +334,14 @@ def test_build_key_changes_with_a_header(tmp_path):
     assert _cuda.source_key(tmp_path / "a.cu") == a0
     (tmp_path / "a.cu").write_text('#include "h.cuh"\n// edited\n')
     assert _cuda.source_key(tmp_path / "a.cu") != a0
-    # a source's own flags are part of its key
-    assert "-fmad=false" in _cuda.SOURCE_FLAGS["p3_part2.cu"]
-    assert "-fmad=false" in _cuda.SOURCE_FLAGS["awfl_fct.cu"]
+    # a source's own flags (its row of the kernel table) are part of its key
+    assert "-fmad=false" in _cuda.source_flags("p3_part2.cu")
+    assert "-fmad=false" in _cuda.source_flags("awfl_fct.cu")
     assert "-fmad=false" not in _cuda.NVCC_FLAGS
     (tmp_path / "p3_part2.cu").write_text('#include "h.cuh"\n')
     with_flag = _cuda.source_key(tmp_path / "p3_part2.cu")
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(_cuda, "SOURCE_FLAGS", {})
+        mp.setattr(_cuda, "KERNELS", ())
         assert _cuda.source_key(tmp_path / "p3_part2.cu") != with_flag
     # the package's own sources: the headers are hashed, and passed with -I
     assert sorted(f.name for f in _cuda.CSRC.glob("*.cuh")) == [
@@ -353,6 +353,37 @@ def test_build_key_changes_with_a_header(tmp_path):
         assert '#include "weno5.cuh"' in (_cuda.CSRC / name).read_text()
     assert '#include "p3_tables.cuh"' in (
         _cuda.CSRC / "p3_part2.cu").read_text()
+
+
+# the sources that are machinery of the compiled step and the tracer, no
+# kernel of the TPU's or the port's, and so have no row
+NOT_KERNELS = ("graph_while.cu", "trace_stamp.cu")
+
+
+@pytest.mark.parametrize("source", sorted(p.name for p in
+                                          _cuda.CSRC.glob("*.cu")))
+def test_kernel_table_has_one_row_a_kernel_source(source):
+    """Each csrc/*.cu but the machinery has exactly one row of
+    _cuda.KERNELS, whose trace name is a __global__ function of the
+    source and whose launcher resolves and counts its launches; no row
+    names a missing source, and kernel_times.py times only the table's
+    kernels."""
+    from pam_tpu_torch import kernel_times
+    rows = [k for k in _cuda.KERNELS if k.source == source]
+    assert {k.source for k in _cuda.KERNELS} <= {
+        p.name for p in _cuda.CSRC.glob("*.cu")}
+    assert len({k.short for k in _cuda.KERNELS}) == len(_cuda.KERNELS)
+    assert set(kernel_times.TIMES) <= {k.key for k in _cuda.KERNELS}
+    if source in NOT_KERNELS:
+        assert rows == []
+        return
+    (row,) = rows
+    text = (_cuda.CSRC / source).read_text()
+    kernels = re.findall(r"__global__\s+void\s+(?:__launch_bounds__\(.*?\)\s+)?"
+                         r"(\w+)\s*\(", text, flags=re.S)
+    assert row.trace_name in kernels
+    launcher = row.launcher_fn()
+    assert callable(launcher) and hasattr(launcher, "launches")
 
 
 @pytest.mark.gpu
